@@ -1,0 +1,174 @@
+"""Host branch-and-bound engines over python-int bitset tiles.
+
+The port's copy of the reference host engine: the paper-faithful
+recursions (Algorithms 2-5) over python-int bitsets.  The torch engine
+(:mod:`repro_torch.core.engine_torch`) spills tiles wider than its largest
+bin here, and the launcher's ``--verify`` checks against it.
+
+* ``count_rec_T`` -- truss-ordered edge-oriented branching with the
+                     explicit E(g)-filtered sub-branch construction of
+                     Algorithm 3 (ESet semantics).
+* ``count_rec_C`` -- color-ordered edge-oriented branching on a DAG
+                     (Algorithm 4), with pruning Rules (1) and (2).
+
+Both support early termination into :mod:`repro_torch.core.plex`.  Still
+to be ported: ``count_rec_V`` (VBBkC baseline), ``list_rec_C`` (listing
+slice) and ``Stats.merge`` (multi-device dispatch slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
+
+from .bitops import bits, mask_gt, popcount
+from . import plex
+
+
+@dataclasses.dataclass
+class Stats:
+    branches: int = 0        # BB branches formed
+    et_hits: int = 0         # branches finished by early termination
+    pruned_size: int = 0     # pruned by |V(g)| < l
+    pruned_color: int = 0    # pruned by Rules (1)/(2)
+    peak_graph: int = 0      # largest branch graph seen
+    spilled_tiles: int = 0   # oversize tiles routed device -> host recursion
+    # sizes of the spilled tiles (one entry per spill)
+    spill_sizes: List[int] = dataclasses.field(default_factory=list)
+    # which engine served the query: "host", or "torch:<device type>"
+    backend: str = ""
+    # front end (repro_torch.core.pipeline.stream_batches): pack-pool size
+    # (0 = inline serial packing), extract + pack seconds (worker
+    # CPU-seconds when parallel), and the prefetch queue's mean occupancy
+    # (0..1 of the window) / peak depth observed at consumer harvest
+    pack_workers: int = 0
+    frontend_s: float = 0.0
+    pack_queue_occupancy: float = 0.0
+    pack_queue_peak: int = 0
+    # plan cache (repro_torch.core.pipeline.cached_plan): True when the
+    # preprocessing came from the in-process cache; plan_build_s is the
+    # cold-path build time (0.0 on warm queries)
+    plan_cache_hit: bool = False
+    plan_build_s: float = 0.0
+
+
+def _count_edges(rows: Sequence[int], cand: int) -> int:
+    s = 0
+    for v in bits(cand):
+        s += popcount(rows[v] & cand & mask_gt(v))
+    return s
+
+
+def _try_et(rows: Sequence[int], cand: int, l: int, et_t: int,
+            stats: Stats, rec: Callable[[Sequence[int], int, int], int]
+            ) -> Optional[int]:
+    """Early termination (Section 5). Returns a count or None."""
+    if et_t < 2:
+        return None
+    nv, t = plex.plexity(rows, cand)
+    if nv == 0:
+        return 1 if l == 0 else 0
+    if t <= 2:
+        stats.et_hits += 1
+        return plex.count_in_2plex(rows, cand, l)
+    if t <= et_t:
+        # factor universal vertices combinatorially (Alg. 7 lines 8-10),
+        # finish the remainder with the generic recursion
+        stats.et_hits += 1
+        from math import comb
+        F, rest = plex.split_universal(rows, cand)
+        f = popcount(F)
+        total = 0
+        for c in range(0, min(l, f) + 1):
+            total += comb(f, c) * rec(rows, rest, l - c)
+        return total
+    return None
+
+
+# ---------------------------------------------------------------------------
+# EBBkC-C inner recursion (fixed tile adjacency, DAG by local index)
+# ---------------------------------------------------------------------------
+
+def count_rec_C(rows: Sequence[int], cand: int, l: int, stats: Stats,
+                colors: Optional[Sequence[int]] = None, et_t: int = 0,
+                use_rule2: bool = True) -> int:
+    nv = popcount(cand)
+    if nv < l:
+        stats.pruned_size += 1
+        return 0
+    if l == 0:
+        return 1
+    if l == 1:
+        return nv
+    if l == 2:
+        return _count_edges(rows, cand)
+    stats.peak_graph = max(stats.peak_graph, nv)
+    et = _try_et(rows, cand, l, et_t,
+                 stats, lambda r, c, ll: count_rec_C(r, c, ll, stats, colors,
+                                                     0, use_rule2))
+    if et is not None:
+        return et
+    total = 0
+    for u in bits(cand):
+        row_u = rows[u] & cand & mask_gt(u)
+        if colors is not None and colors[u] < l:  # Rule (1) part 1
+            stats.pruned_color += 1
+            continue
+        for v in bits(row_u):
+            if colors is not None and colors[v] < l - 1:  # Rule (1) part 2
+                stats.pruned_color += 1
+                continue
+            sub = cand & rows[u] & rows[v] & mask_gt(v)
+            stats.branches += 1
+            if colors is not None and use_rule2:
+                distinct = len({colors[w] for w in bits(sub)})
+                if distinct < l - 2:  # Rule (2)
+                    stats.pruned_color += 1
+                    continue
+            total += count_rec_C(rows, sub, l - 2, stats, colors, et_t,
+                                 use_rule2)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# EBBkC-T inner recursion (edge-list filtered sub-branches, Alg. 3 semantics)
+# ---------------------------------------------------------------------------
+
+def count_rec_T(edges: List[Tuple[int, int]], cand: int, num_local: int,
+                l: int, stats: Stats, et_t: int = 0) -> int:
+    """edges: local pairs sorted by global pi_tau rank; cand: vertex bitset."""
+    nv = popcount(cand)
+    if nv < l:
+        stats.pruned_size += 1
+        return 0
+    if l == 0:
+        return 1
+    if l == 1:
+        return nv
+    if l == 2:
+        return len(edges)
+    stats.peak_graph = max(stats.peak_graph, nv)
+    rows = [0] * num_local
+    for a, b in edges:
+        rows[a] |= 1 << b
+        rows[b] |= 1 << a
+    if et_t >= 2:
+        def rec(r, c, ll):
+            sub_edges = [(a, b) for (a, b) in edges
+                         if (c >> a) & 1 and (c >> b) & 1]
+            return count_rec_T(sub_edges, c, num_local, ll, stats, 0)
+        et = _try_et(rows, cand, l, et_t, stats, rec)
+        if et is not None:
+            return et
+    total = 0
+    for i, (a, b) in enumerate(edges):
+        rows[a] &= ~(1 << b)
+        rows[b] &= ~(1 << a)
+        sub = rows[a] & rows[b]          # common nbrs among edges ranked > i
+        stats.branches += 1
+        if popcount(sub) < l - 2:
+            stats.pruned_size += 1
+            continue
+        sub_edges = [(x, y) for (x, y) in edges[i + 1:]
+                     if (sub >> x) & 1 and (sub >> y) & 1]
+        total += count_rec_T(sub_edges, sub, num_local, l - 2, stats, et_t)
+    return total

@@ -1,0 +1,100 @@
+"""Build and bind the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call for Hopper
+(``sm_90a``) into ``build/repro_torch/libkernels-<hash>.so`` under the
+repository root, at first use.  The hash covers the sources, the headers
+and the code-generation flags, so an edited source builds a new library
+and an unchanged tree reuses the old one.  The library has a plain C interface and is bound
+with ``ctypes``: no PyTorch headers are compiled, so a build takes seconds.
+
+Nothing is built when the module is imported; :func:`lib` builds on the
+first kernel launch (or when a caller asks for it, as ``chip_smoke.py``
+does to time the build).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels build only on "
+            "a machine with the CUDA toolkit")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the sources unless the library for their hash exists.
+
+    Returns the library's path.  With ``verbose`` the build also asks
+    ptxas for its register and shared-memory report (``-Xptxas -v``, which
+    changes no code) and prints the compiler's output.
+    """
+    out = BUILD_DIR / f"libkernels-{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), *(str(s) for s in _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if verbose or proc.returncode:
+        print(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a torn file
+    return out
+
+
+def _bind(path: Path) -> ctypes.CDLL:
+    so = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    so.triangle_count_tiles_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    so.triangle_count_tiles_launch.restype = i32
+    so.clique_count_tiles_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    so.clique_count_tiles_launch.restype = i32
+    return so
+
+
+def lib(verbose: bool = False) -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _bind(build(verbose=verbose))
+        return _LIB

@@ -1,0 +1,69 @@
+"""Kernel routing for per-tile clique counting (port of the counting half
+of ``repro/kernels/ops.py``).
+
+:func:`count_tiles` routes by l = k - 2 exactly as the reference's Pallas
+family does:
+
+* ``method="auto"``: l == 3 goes to the triangle kernel
+  (:mod:`repro_torch.kernels.triangle_mm`), l >= 4 to the DFS kernel
+  (:mod:`repro_torch.kernels.clique_count`);
+* ``"mxu"`` pins the triangle kernel (l == 3 only; the name is the
+  reference's, kept so call sites read the same);
+* ``"dfs"`` pins the DFS kernel, l == 3 included;
+* ``"ref"`` runs the expansion oracle of :mod:`repro_torch.kernels.ref`.
+
+l <= 2 takes closed forms and no kernel.  Each kernel wrapper sends a CUDA
+tensor to its CUDA kernel and a CPU tensor to its plain torch version; the
+launch counters below show which ran.
+
+Still to be ported: ``list_tiles`` (listing slice), ``autotune`` and the
+backend registry (tune slice), ``edge_candidates``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import clique_count as _cc
+from . import ref as _ref
+from . import triangle_mm as _tm
+
+METHODS = ("auto", "mxu", "dfs", "ref")
+
+_KERNELS = {"triangle_count_tiles": _tm, "clique_count_tiles": _cc}
+
+
+def count_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
+                method: str = "auto") -> torch.Tensor:
+    """Count l-cliques per tile: (B,T,W) int32 x (B,W) int32 -> (B,) int64
+    (uint32 values)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"{METHODS}")
+    if l < 1:
+        raise ValueError("counting requires l >= 1")
+    if method == "ref" or l <= 2:
+        return _ref.clique_count_tiles_ref(A, cand, l)
+    if method == "mxu" or (method == "auto" and l == 3):
+        if l != 3:
+            raise ValueError("the triangle kernel implements l == 3 only")
+        return _tm.triangle_count_tiles(A, cand)
+    return _cc.clique_count_tiles(A, cand, l)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def plain_counts() -> Dict[str, int]:
+    """Plain-version calls per kernel since the last reset."""
+    return {name: mod.plain_calls for name, mod in _KERNELS.items()}
+
+
+def reset_counts() -> None:
+    """Set every launch and plain-call counter to 0."""
+    for mod in _KERNELS.values():
+        mod.launches = 0
+        mod.plain_calls = 0
