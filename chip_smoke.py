@@ -5,12 +5,23 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain torch version on the card, then drives
-the port's main path -- single-query k-clique counting through
-``repro_torch.core.ebbkc.count`` on its default device engine -- on a
-Graph500-shaped RMAT graph (scale 15, edge factor 16: n = 32,768,
-m = 441,769) for k = 5 (triangle kernel) and k = 7 (DFS kernel), and
-finally runs the command-line launcher with ``--verify``.  Any failure
-raises and exits non-zero.
+the port's paths through the entry points a user calls, each with the
+kernel counters set to 0 just before it and read just after:
+
+* counting -- ``repro_torch.core.ebbkc.count`` on its default device
+  engine -- on a Graph500-shaped RMAT graph (scale 15, edge factor 16:
+  n = 32,768, m = 441,769) for k = 5 (triangle kernel) and k = 7 (DFS
+  kernel);
+* listing -- ``repro_torch.core.ebbkc.list_cliques``' engine,
+  ``listing.stream_cliques``, into a sink that hashes the rows -- on the
+  same generator at scale 12 (n = 4,096, m = 48,484) for k = 5 (cold and
+  warm plan; l = 3 triangle emit) and k = 6 (l = 4 DFS emit, with
+  overflowed tiles relisted on the host);
+* edge-branch candidates -- ``repro_torch.kernels.ops.edge_candidates``
+  -- on every packed batch of the k = 5 listing, one edge of each tile;
+
+and finally runs the command-line launcher with ``--verify``, counting
+and listing.  Any failure raises and exits non-zero.
 
 Output: the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` JSON line with each kernel's launches on the main
@@ -25,8 +36,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -43,6 +56,25 @@ ROOT = Path(__file__).resolve().parent
 # with K = 5 and K = 7 (K = 7 takes about 5 minutes on a CPU).
 RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 15, 16, 7
 EXPECTED = {5: 1_342_399_771, 7: 126_451_960_147}
+
+# Expected rows of listing rmat_graph(12, edge_factor=16, seed=7), hybrid
+# order, default geometry, from the JAX reference package on a CPU:
+#   PYTHONPATH=src python -c "import hashlib; \
+#     from repro.data.graphs import rmat_graph; \
+#     from repro.core.listing import stream_cliques, CallbackSink; \
+#     h = hashlib.sha256(); g = rmat_graph(12, 16, seed=7); \
+#     stream_cliques(g, K, CallbackSink(lambda r: h.update( \
+#       r.astype('<i8').tobytes())), backend='lax'); print(h.hexdigest())"
+# with K = 5 (20 s on a CPU) and K = 6 (279 s).  The digest is the SHA-256
+# of every emitted (n, k) chunk as C-contiguous little-endian int64, in
+# emit order; the row counts equal engine_jax.count(g, K, backend="lax").
+LIST_SCALE = 12
+EXPECTED_LIST = {
+    5: (27_489_733,
+        "f50e870070604910ec249ab410b73d63df19c6cb65f242c1cb67a708191e9522"),
+    6: (146_073_205,
+        "be3b0746468f912cc2ce3e21aa5c8320e8aede9ffb9bc3326941149689d5c790"),
+}
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit):
 # 3.35 TB/s of HBM; 67 TFLOP/s of fp32 outside the tensor cores,
@@ -119,13 +151,15 @@ def seeded_tiles(seed: int, B: int, T: int, p: float):
     return pack_bits(dense), pack_bits(cmask)
 
 
-def main_path_batches(plan, k: int, T: int, batch_size: int = 256):
+def main_path_batches(plan, k: int, T: int, batch_size: int = 256,
+                      zero_2plex: bool = True):
     """The inputs the main path gives the kernels in bin ``T`` at ``k``:
     ``batch_size`` tiles spread evenly over the bin's stream order (its
     first tiles come from the densest, last-peeled edges and are nearly all
     2-plexes), and the bin's real last batch of ``n_tiles % batch_size``
-    tiles.  Each is packed as the engine packs it, with the 2-plex lanes
-    zeroed as ``count_packed`` zeroes them.  Yields (tag, A, cand, live)."""
+    tiles.  Each is packed as the engine packs it; with ``zero_2plex`` the
+    2-plex lanes are zeroed as ``count_packed`` zeroes them (the listing
+    engine zeroes none).  Yields (tag, A, cand, live)."""
     import numpy as np
     import torch
     from repro_torch.convert import batch_to_torch
@@ -145,6 +179,9 @@ def main_path_batches(plan, k: int, T: int, batch_size: int = 256):
         batch = pipeline._pack_batch(plan.g, table, chunk, T, "hybrid")
         A, cand = batch_to_torch(batch.A, batch.cand, "cuda")
         _, t, _ = engine_torch.plex_stats(A, cand)
+        if not zero_2plex:
+            yield which, A, cand, A.shape[0]
+            continue
         cand = torch.where((t <= 2)[:, None], torch.zeros_like(cand), cand)
         yield which, A, cand.contiguous(), int(np.count_nonzero(
             (t > 2).cpu().numpy()))
@@ -163,6 +200,15 @@ def bmm_yardstick(A, cand):
     def call():
         return (torch.bmm(M, M).float() * M.float()).sum((1, 2)) / 6.0
     return call, call().round().to(torch.int64)
+
+
+def bound(nbytes: int, word_ops: int):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the word operations over the int32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = word_ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
 
 
 def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
@@ -219,14 +265,12 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
         errs[kernel] = max(errs.get(kernel, 0),
                            int((got - want).abs().max()) if B else 0)
         ms = time_ms(launch, reps)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = word_ops / INT32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, word_ops)
         row = {"kernel": kernel, "case": tag, "T": T, "l": l, "B": B,
                "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-               "word_ops": word_ops,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "library_ms": lib_ms, "tiles_per_s": B / (ms / 1e3)}
+               "word_ops": word_ops, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "tiles_per_s": B / (ms / 1e3)}
         rows.append(row)
         results.append(row)
         log(f"  {kernel:8s} {tag:17s} T={T:3d} l={l} B={B:3d}: "
@@ -235,6 +279,130 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
             f"{nbytes} B, {word_ops} word-ops)"
             + (f", bmm {lib_ms:.4f} ms" if lib_ms is not None else ""))
     return results
+
+
+def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
+    """List kernel vs plain on one input at capacity ``cap``: buffer (zero
+    padding included), count and overflow must be ``torch.equal``.  With
+    ``reps`` it also times the bare C entry point (no launch counted), the
+    zero fill a ``torch.zeros`` buffer would add, and the bound."""
+    import torch
+    from repro_torch.kernels import _build, clique_list
+    from repro_torch.kernels.common import check_tiles
+    B, T, W = check_tiles(A, cand)
+    got = clique_list.clique_list_tiles(A, cand, l, cap)
+    work = {}
+    want, plain_ms = timed_once(
+        lambda: clique_list.clique_list_tiles_torch(A, cand, l, cap, work))
+    for name, x, y in zip(("buffer", "count", "overflow"), got, want):
+        if not torch.equal(x, y):
+            bad = (x != y).reshape(B, -1).any(-1).nonzero()[:5, 0].tolist()
+            fail(f"list kernel {name} != plain at T={T} l={l} cap={cap} "
+                 f"({tag}): tiles {bad}")
+    errs["list"] = max(errs.get("list", 0), max(
+        int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+        if x.numel() else 0 for x, y in zip(got, want)))
+    count = want[1]
+    if not reps:
+        return count
+    so = _build.lib()
+    buf = torch.empty((B, cap, l), dtype=torch.int32, device=A.device)
+    cnt = torch.empty(B, dtype=torch.int32, device=A.device)
+    ovf = torch.empty(B, dtype=torch.int32, device=A.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        so.clique_list_tiles_launch(A.data_ptr(), cand.data_ptr(),
+                                    buf.data_ptr(), cnt.data_ptr(),
+                                    ovf.data_ptr(), B, T, l, cap, stream)
+    ms = time_ms(launch, reps)
+    zero_ms = time_ms(buf.zero_, reps)
+    written = int(torch.clamp(count, max=cap).sum())
+    nbytes = A.numel() * 4 + cand.numel() * 4 + written * l * 4 + B * 8
+    # 2 word ops (AND, popcount) per word of every DFS step; 3 (two ANDs,
+    # popcount) per word of every vertex an edge close examines; 4 per word
+    # of every induced edge the triangle close examines; W per tile for
+    # the frontier close
+    word_ops = W * (2 * int(work["steps"].sum())
+                    + 3 * int(work["close_verts"].sum())
+                    + 4 * int(work["close_edges"].sum())
+                    + (B if l == 1 else 0))
+    bound_ms, bound_by = bound(nbytes, word_ops)
+    # library_ms stays None: no single PyTorch call lists cliques
+    row = {"kernel": "list", "case": tag, "T": T, "l": l, "B": B,
+           "capacity": cap, "rows": int(count.sum()), "written": written,
+           "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+           "word_ops": word_ops, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "zero_fill_ms": zero_ms}
+    rows.append(row)
+    log(f"  list     {tag:17s} T={T:3d} l={l} B={B:3d} cap={cap:5d}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {word_ops} word-ops), "
+        f"{row['rows']} rows ({written} written), zero fill of the buffer "
+        f"{zero_ms:.4f} ms")
+    return row
+
+
+def edge_case(rows, errs, A, pairs, tag, reps=20):
+    """edge_candidates kernel vs plain on one input, timed."""
+    import torch
+    from repro_torch.kernels import _build, intersect
+    B, T, W = A.shape
+    got = intersect.edge_candidates(A, pairs)
+    want, plain_ms = timed_once(lambda: intersect.edge_candidates_torch(
+        A, pairs))
+    for x, y in zip(got, want):
+        if not torch.equal(x, y):
+            fail(f"edge_candidates kernel != plain at T={T} ({tag})")
+    errs["edge"] = max(errs.get("edge", 0), max(
+        int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+        if x.numel() else 0 for x, y in zip(got, want)))
+    so = _build.lib()
+    cand = torch.empty((B, W), dtype=torch.int32, device=A.device)
+    n = torch.empty(B, dtype=torch.int32, device=A.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        so.edge_candidates_launch(A.data_ptr(), pairs.data_ptr(),
+                                  cand.data_ptr(), n.data_ptr(), B, T,
+                                  stream)
+    ms = time_ms(launch, reps)
+    # the function reads two rows and the pair of each tile and writes W
+    # words and a count; 3 word ops (AND, AND, popcount) a word
+    nbytes = B * (2 * W * 4 + 8 + W * 4 + 4)
+    bound_ms, bound_by = bound(nbytes, 3 * W * B)
+    # library_ms stays None: no single PyTorch call forms A[a] & A[b] & gt(b)
+    row = {"kernel": "edge", "case": tag, "T": T, "B": B, "ms": ms,
+           "plain_ms": plain_ms, "bytes": nbytes, "word_ops": 3 * W * B,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    rows.append(row)
+    log(f"  edge     {tag:17s} T={T:3d} B={B:4d}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return row
+
+
+def first_edges(A):
+    """(B, 2) int32 pairs: per tile its first edge (a, b), a < b, in
+    row-major order ((0, 1) for a tile with none)."""
+    import torch
+    from repro_torch.core.bitops import gt_masks, unpack_bits, widen
+    T = A.shape[1]
+    e = unpack_bits(widen(A) & gt_masks(T, A.device), T).reshape(
+        A.shape[0], T * T)
+    first = torch.where(e.any(-1), e.argmax(-1), torch.ones_like(e[:, 0]))
+    return torch.stack([first // T, first % T], 1).to(torch.int32)
+
+
+def batches_per_bin(plan, k: int):
+    """Packed batches the engines stream for ``k``, per bin."""
+    import numpy as np
+    table = plan.table("hybrid")
+    ids = table.select(k)
+    sizes = table.offsets[ids + 1] - table.offsets[ids]
+    per_T = np.bincount(np.searchsorted(np.asarray(BINS), sizes),
+                        minlength=len(BINS) + 1)
+    return ({T: -(-int(per_T[i]) // 256) for i, T in enumerate(BINS)},
+            {T: int(per_T[i]) for i, T in enumerate(BINS)})
 
 
 def main(argv=None) -> int:
@@ -249,9 +417,10 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
-    from repro_torch.core import ebbkc, pipeline
+    from repro_torch.core import ebbkc, listing, pipeline
     from repro_torch.data.graphs import rmat_graph
-    from repro_torch.kernels import _build, ops
+    from repro_torch import convert
+    from repro_torch.kernels import _build, intersect, ops
     from repro_torch.launch import clique
 
     t_start = time.perf_counter()
@@ -264,7 +433,18 @@ def main(argv=None) -> int:
     # -- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
     _build.lib(verbose=True)
-    log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    # for comparison only: the same sources in one nvcc call, run after
+    # the parallel build (so with the compiler's files already cached)
+    one = _build.BUILD_DIR / "one-call.tmp.so"
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(one), *map(str, _build._sources())], check=True)
+    one_call_s = time.perf_counter() - t0
+    one.unlink()
+    log(f"[build] nvcc sm_90a, one process per source: {build_s:.2f} s; "
+        f"one nvcc over all {len(_build._sources())} sources (timed for "
+        f"comparison, not used): {one_call_s:.2f} s")
 
     # -- phase 3: kernel vs plain on seeded tiles --------------------------
     rows, errs = [], {}
@@ -275,6 +455,27 @@ def main(argv=None) -> int:
                    for x in seeded_tiles(T, 64, T, density[T]))
         for l in (3, 4, 5, 6):
             kernel_cases(rows, errs, A, cand, l, "seeded")
+    log("[list] seeded tiles, 64 a case, capacities 1, below the largest "
+        "count, capacity_for(counts)")
+    for T in BINS:
+        A, cand = (torch.from_numpy(x).view(torch.int32).cuda()
+                   for x in seeded_tiles(T + 1, 64, T, density[T]))
+        for l in (1, 2, 3, 4, 5):
+            counts = ops.count_tiles(A, cand, l).cpu().numpy()
+            top = int(counts.max())
+            for cap in sorted({1, max(1, top - 1)}):
+                list_case(rows, errs, A, cand, l, cap, "seeded")
+            list_case(rows, errs, A, cand, l, listing.capacity_for(counts),
+                      "seeded", reps=10)
+    log("[edge] seeded tiles and pairs")
+    for T in BINS:
+        A, _ = (torch.from_numpy(x).view(torch.int32).cuda()
+                for x in seeded_tiles(T + 2, 256, T, density[T]))
+        rng = np.random.default_rng(T)
+        a = rng.integers(0, T - 1, 256)
+        b = a + 1 + rng.integers(0, T - 1 - a)
+        pairs = torch.from_numpy(np.stack([a, b], 1).astype(np.int32)).cuda()
+        edge_case(rows, errs, A, pairs, "seeded")
     torch.cuda.synchronize()
     log(f"[kernels] seeded cases pass: {time.perf_counter() - t_start:.1f} s "
         "since start")
@@ -323,27 +524,22 @@ def main(argv=None) -> int:
     launches = ops.launch_counts()
     plain = ops.plain_counts()
     log(f"[main] launches {launches} plain-version calls {plain}")
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+    if not (launches["triangle_count_tiles"] and
+            launches["clique_count_tiles"]):
+        fail(f"a kernel of the counting path never launched: {launches}")
     if sum(plain.values()):
         fail(f"a plain version ran on the main path: {plain}")
     plan = pipeline.cached_plan(g, "hybrid")
-    expect_launches = {"triangle_count_tiles": 0, "clique_count_tiles": 0}
+    expect_launches = dict.fromkeys(launches, 0)
     for k, name in ((5, "triangle_count_tiles"), (7, "clique_count_tiles")):
-        table = plan.table("hybrid")
-        ids = table.select(k)
-        sizes = table.offsets[ids + 1] - table.offsets[ids]
-        per_T = np.bincount(np.searchsorted(np.asarray(BINS), sizes),
-                            minlength=len(BINS) + 1)
-        batches = {T: -(-int(per_T[i]) // 256) for i, T in enumerate(BINS)}
+        batches, tiles = batches_per_bin(plan, k)
         main_runs[k]["batches_per_T"] = batches
-        main_runs[k]["tiles_per_T"] = {T: int(per_T[i])
-                                       for i, T in enumerate(BINS)}
+        main_runs[k]["tiles_per_T"] = tiles
         expect_launches[name] += sum(batches.values())
-        log(f"[main] k={k} tiles per bin {main_runs[k]['tiles_per_T']}, "
-            f"batches per bin {batches}")
+        log(f"[main] k={k} tiles per bin {tiles}, batches per bin {batches}")
     if launches != expect_launches:
         fail(f"launches {launches} != one per packed batch {expect_launches}")
+    count_launches = launches
 
     # -- kernel vs plain on main-path batches ------------------------------
     log("[kernels] main-path batches (an even sample of each bin, and the "
@@ -359,6 +555,117 @@ def main(argv=None) -> int:
     if not any(r["B"] % 4 for r in real.values()):
         fail("no compared main-path batch leaves a DFS block partly empty")
 
+    # -- the listing path at full size ---------------------------------------
+    lg = rmat_graph(LIST_SCALE, edge_factor=RMAT_EDGE_FACTOR, seed=RMAT_SEED)
+    log(f"[list main] rmat_graph({LIST_SCALE}, edge_factor="
+        f"{RMAT_EDGE_FACTOR}, seed={RMAT_SEED}): n={lg.n} m={lg.m}")
+    list_runs, list_plain = {}, {}
+    for run, k in (("k=5 cold", 5), ("k=5 warm", 5), ("k=6 warm", 6)):
+        if run == "k=5 cold":
+            pipeline.clear_plan_cache()
+        digest, nrows = hashlib.sha256(), [0]
+
+        def hash_rows(chunk):
+            digest.update(np.ascontiguousarray(chunk, dtype="<i8"))
+            nrows[0] += chunk.shape[0]
+        stage = {}
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        res = listing.stream_cliques(lg, k, listing.CallbackSink(hash_rows),
+                                     stage_times=stage)
+        wall = time.perf_counter() - t0
+        delta = ops.launch_counts()
+        list_plain[run] = ops.plain_counts()
+        st = res.stats
+        batches, tiles = batches_per_bin(pipeline.cached_plan(lg, "hybrid"),
+                                         k)
+        list_runs[run] = dict(
+            k=k, rows=nrows[0], sha256=digest.hexdigest(), wall_s=wall,
+            rows_per_s=nrows[0] / wall, tiles=res.tiles,
+            batches=sum(batches.values()), tiles_per_T=tiles,
+            overflowed=st.overflowed_tiles, spilled=st.spilled_tiles,
+            plan_build_s=st.plan_build_s, plan_cache_hit=st.plan_cache_hit,
+            frontend_s=st.frontend_s, pack_workers=st.pack_workers,
+            stages=stage, launches=delta)
+        log(f"[list main] {run}: {nrows[0]} rows in {wall:.2f} s "
+            f"({nrows[0] / wall:.0f} rows/s), tiles={res.tiles} "
+            f"batches={sum(batches.values())} overflowed="
+            f"{st.overflowed_tiles} spilled={st.spilled_tiles} plan_build="
+            f"{st.plan_build_s:.2f} s (cache_hit={st.plan_cache_hit}) "
+            f"frontend={st.frontend_s:.2f} s (worker-s)")
+        log(f"[list main] {run}: device stage (H2D, count pass, list "
+            f"kernel, D2H) {stage.get('device', 0.0):.2f} s, D2H "
+            f"{stage.get('d2h_bytes', 0)} B, decode "
+            f"{stage.get('decode', 0.0):.2f} s of which host relist of "
+            f"overflowed tiles {stage.get('relist', 0.0):.2f} s, sink "
+            f"{stage.get('emit', 0.0):.2f} s; launches {delta}")
+        want_rows, want_sha = EXPECTED_LIST[k]
+        if (nrows[0], digest.hexdigest()) != (want_rows, want_sha):
+            fail(f"listing k={k} ({run}) gave {nrows[0]} rows, sha256 "
+                 f"{digest.hexdigest()}; expected {want_rows}, {want_sha}")
+        count_kernel = ("triangle_count_tiles" if k == 5
+                        else "clique_count_tiles")
+        if not (delta["clique_list_tiles"] == delta[count_kernel]
+                == sum(batches.values()) > 0):
+            fail(f"listing k={k}: launches {delta} != one list and one "
+                 f"count launch per packed batch ({sum(batches.values())})")
+    if list_runs["k=6 warm"]["overflowed"] == 0:
+        fail("listing k=6 overflowed no tile: the host relist never ran")
+    # the kernels line reports the k=6 run, whose batches give its row
+    list_launches = list_runs["k=6 warm"]["launches"]
+    log(f"[list main] plain-version calls per run {list_plain}")
+    if any(sum(plain.values()) for plain in list_plain.values()):
+        fail(f"a plain version ran on the listing path: {list_plain}")
+
+    # -- the edge-candidate path: one edge of every tile of the k=5 batches
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    nb, checked = 0, 0
+    stream = pipeline.stream_batches(pipeline.cached_plan(lg, "hybrid"), 5,
+                                     pack_workers=0)
+    timed_input = None
+    for batch in stream:
+        if not isinstance(batch, pipeline.TileBatch):
+            continue  # a spilled tile: no packed batch to take an edge of
+        A, _ = convert.batch_to_torch(batch.A, batch.cand, "cuda")
+        pairs = first_edges(A)
+        cand_e, n_e = ops.edge_candidates(A, pairs)
+        nb += 1
+        if timed_input is None and batch.T == 32 and batch.B == 256:
+            timed_input = (A, pairs)
+        if nb % 16 == 1:  # held against the plain version (not counted)
+            want = intersect.edge_candidates_torch(A, pairs)
+            if not (torch.equal(cand_e, want[0]) and torch.equal(n_e,
+                                                                 want[1])):
+                fail(f"edge_candidates kernel != plain on batch {nb}")
+            checked += 1
+    edge_launches = ops.launch_counts()
+    log(f"[edge main] {nb} batches in {time.perf_counter() - t0:.2f} s, "
+        f"{checked} held against the plain version; launches "
+        f"{edge_launches}")
+    if edge_launches["edge_candidates"] != nb or nb == 0:
+        fail(f"edge_candidates launched {edge_launches['edge_candidates']} "
+             f"times on {nb} batches")
+    if any(v for n, v in edge_launches.items() if n != "edge_candidates"):
+        fail(f"the edge-candidate path launched other kernels: "
+             f"{edge_launches}")
+    edge_rep = edge_case(rows, errs, *timed_input, "main k=5 first",
+                         reps=50)
+
+    # -- kernel vs plain on the listing path's own batches ------------------
+    log("[list] main-path batches (an even sample of each bin, and the "
+        "bin's real last batch), capacity from the count pass")
+    lplan = pipeline.cached_plan(lg, "hybrid")
+    for k in (5, 6):
+        for T in BINS:
+            for which, A, cand, _ in main_path_batches(lplan, k, T,
+                                                       zero_2plex=False):
+                counts = ops.count_tiles(A, cand, k - 2).cpu().numpy()
+                cap = listing.capacity_for(counts)
+                tag = f"main k={k} {which}"
+                real[("list", T, k - 2, which)] = list_case(
+                    rows, errs, A, cand, k - 2, cap, tag, reps=20)
+
     # -- phase 5: the launcher ---------------------------------------------
     ops.reset_counts()
     buf = io.StringIO()
@@ -372,10 +679,37 @@ def main(argv=None) -> int:
     if ops.launch_counts()["clique_count_tiles"] == 0:
         fail("launcher at k=6 never launched the DFS kernel")
     log(f"[cli] rmat:12 k=6 --verify: {time.perf_counter() - t0:.1f} s")
+    for spec, k in (("rmat:10", 5), ("er:400,0.06", 4)):
+        ops.reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = clique.main(["--graph", spec, "--k", str(k), "--list",
+                              "--verify"])
+        out = buf.getvalue()
+        log("[cli] " + " | ".join(out.strip().splitlines()))
+        if rc != 0 or "match=True" not in out:
+            fail(f"launcher --list --verify on {spec} at k={k} did not "
+                 "match the host engine")
+        listed = re.search(r"listed (\d+) cliques", out)
+        if listed is None or int(listed.group(1)) == 0:
+            fail(f"launcher --list on {spec} at k={k} listed no clique")
+        if ops.launch_counts()["clique_list_tiles"] == 0:
+            fail(f"launcher --list on {spec} at k={k} never launched the "
+                 "list kernel")
+        log(f"[cli] {spec} k={k} --list --verify: "
+            f"{time.perf_counter() - t0:.1f} s")
 
     # -- summary -----------------------------------------------------------
-    rep = {"triangle_count_tiles": real[("triangle", 32, 3, "sample")],
-           "clique_count_tiles": real[("dfs", 32, 5, "sample")]}
+    # each kernel's row: the bin with most launches on its path; launches
+    # are those of its own path's run (counting, listing, edge candidates)
+    rep = {"triangle_count_tiles": (real[("triangle", 32, 3, "sample")],
+                                    "triangle", count_launches),
+           "clique_count_tiles": (real[("dfs", 32, 5, "sample")], "dfs",
+                                  count_launches),
+           "clique_list_tiles": (real[("list", 32, 4, "sample")], "list",
+                                 list_launches),
+           "edge_candidates": (edge_rep, "edge", edge_launches)}
     meta = {
         "triangle_count_tiles": (
             "src/repro_torch/kernels/csrc/triangle_count.cu",
@@ -383,13 +717,18 @@ def main(argv=None) -> int:
         "clique_count_tiles": (
             "src/repro_torch/kernels/csrc/clique_count.cu",
             "src/repro/kernels/clique_count.py:114"),
+        "clique_list_tiles": (
+            "src/repro_torch/kernels/csrc/clique_list.cu",
+            "src/repro/kernels/clique_list.py:165"),
+        "edge_candidates": (
+            "src/repro_torch/kernels/csrc/edge_candidates.cu",
+            "src/repro/kernels/intersect.py:31"),
     }
     kernels = []
-    for name, r in rep.items():
-        short = "triangle" if name == "triangle_count_tiles" else "dfs"
+    for name, (r, short, path_launches) in rep.items():
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "replaces": meta[name][1], "launches": path_launches[name],
             "max_abs_err": errs[short], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -398,9 +737,12 @@ def main(argv=None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(
             {"gpu": header, "torch": torch.__version__,
-             "cuda": torch.version.cuda, "cases": rows,
+             "cuda": torch.version.cuda, "build_s": build_s,
+             "one_call_build_s": one_call_s, "cases": rows,
              "main": {str(k): v for k, v in main_runs.items()},
-             "launches": launches, "kernels": kernels,
+             "list_main": list_runs, "launches": count_launches,
+             "list_launches": list_launches,
+             "edge_launches": edge_launches, "kernels": kernels,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(header)

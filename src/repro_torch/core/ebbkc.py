@@ -1,5 +1,5 @@
 """EBBkC public API of the port: edge-oriented branch-and-bound k-clique
-counting.
+counting and listing.
 
 ``count`` runs the paper's Algorithms 2-7 over the tile dataflow of
 :mod:`repro_torch.core.pipeline`.  ``backend="torch"`` (the default)
@@ -8,15 +8,19 @@ streams packed batches through the device engine
 default, the CPU only when asked; ``backend="host"``, only when asked,
 executes the paper-faithful python-int bitset recursion.  Pass a prebuilt
 :class:`~repro_torch.core.pipeline.PipelinePlan` as ``plan`` to amortize
-preprocessing across queries on one graph.  Still to be ported with the
-listing slice: ``list_cliques``.
+preprocessing across queries on one graph.  ``list_cliques`` returns the
+cliques themselves, through the listing engine
+(:mod:`repro_torch.core.listing`) on the same devices, or through the host
+recursion.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
-from .engine_np import Stats, count_rec_C, count_rec_T
+import numpy as np
+
+from .engine_np import Stats, count_rec_C, count_rec_T, list_rec_C
 from .graph import Graph
 from . import pipeline
 
@@ -74,3 +78,57 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
                                  colors=tile.colors, et_t=et_t,
                                  use_rule2=use_rule2)
     return Result(total, stats, ntiles, max_tile)
+
+
+def list_cliques(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
+                 max_out: Optional[int] = None,
+                 plan: Optional[pipeline.PipelinePlan] = None,
+                 backend: str = "torch", device=None,
+                 engine_kwargs: Optional[dict] = None
+                 ) -> Tuple[np.ndarray, Stats]:
+    """List k-cliques; returns ((count, k) int64 global vertex ids, stats).
+
+    Each row is sorted ascending; rows come in the reference's order.  With
+    ``max_out`` set, exactly ``min(max_out, total)`` cliques are returned.
+    ``backend="torch"`` (the default) streams packed batches through the
+    list kernel on ``device`` -- the CUDA device by default (raising
+    without one), the CPU only when asked -- and never truncates on
+    emit-buffer overflow (overflowed tiles relist on the host,
+    ``stats.overflowed_tiles``); ``engine_kwargs`` forwards knobs such as
+    ``capacity=`` or ``bins=`` to ``listing.stream_cliques``.
+    ``backend="host"`` runs the python-int recursion and takes no device.
+    """
+    if k < 1:
+        raise ValueError("k >= 1 required")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    stats = Stats()
+    stats.backend = "host"
+    if k == 1:
+        out = np.arange(g.n, dtype=np.int64)[:, None]
+        return out[:max_out], stats
+    if k == 2:
+        return g.edges[:max_out].copy(), stats
+    if backend == "torch":
+        from . import listing
+        sink = listing.ArraySink(k, max_out=max_out)
+        res = listing.stream_cliques(plan or g, k, sink, order=order,
+                                     et_t=et_t, device=device,
+                                     **(engine_kwargs or {}))
+        return sink.result(), res.stats
+    out_all: List[Tuple[int, ...]] = []
+    for tile in pipeline.iter_tiles(plan or g, k, mode=order):
+        cand = (1 << tile.s) - 1
+        local: List[Tuple[int, ...]] = []
+        list_rec_C(tile.rows, cand, k - 2, (), local, et_t=et_t)
+        for tup in local:
+            out_all.append(tile.anchor + tuple(int(tile.verts[i])
+                                               for i in tup))
+        if max_out is not None and len(out_all) >= max_out:
+            arr = np.asarray(out_all[:max_out], dtype=np.int64).reshape(-1, k)
+            return np.sort(arr, axis=1), stats
+    if not out_all:
+        return np.zeros((0, k), dtype=np.int64), stats
+    arr = np.asarray(out_all, dtype=np.int64)
+    return np.sort(arr, axis=1), stats

@@ -11,9 +11,13 @@ bin here, and the launcher's ``--verify`` checks against it.
 * ``count_rec_C`` -- color-ordered edge-oriented branching on a DAG
                      (Algorithm 4), with pruning Rules (1) and (2).
 
-Both support early termination into :mod:`repro_torch.core.plex`.  Still
-to be ported: ``count_rec_V`` (VBBkC baseline), ``list_rec_C`` (listing
-slice) and ``Stats.merge`` (multi-device dispatch slice).
+* ``list_rec_C``  -- the listing twin of ``count_rec_C``: emits local-id
+                     tuples; the listing engine relists overflowed and
+                     spilled tiles with it.
+
+All support early termination into :mod:`repro_torch.core.plex`.  Still
+to be ported: ``count_rec_V`` (VBBkC baseline) and ``Stats.merge``
+(multi-device dispatch slice).
 """
 from __future__ import annotations
 
@@ -44,6 +48,12 @@ class Stats:
     frontend_s: float = 0.0
     pack_queue_occupancy: float = 0.0
     pack_queue_peak: int = 0
+    # listing (repro_torch.core.listing): cliques accepted by the sink,
+    # tiles whose device emit buffer overflowed (re-listed on the host --
+    # never truncated), and bytes the sink wrote
+    emitted_cliques: int = 0
+    overflowed_tiles: int = 0
+    sink_bytes: int = 0
     # plan cache (repro_torch.core.pipeline.cached_plan): True when the
     # preprocessing came from the in-process cache; plan_build_s is the
     # cold-path build time (0.0 on warm queries)
@@ -172,3 +182,40 @@ def count_rec_T(edges: List[Tuple[int, int]], cand: int, num_local: int,
                      if (sub >> x) & 1 and (sub >> y) & 1]
         total += count_rec_T(sub_edges, sub, num_local, l - 2, stats, et_t)
     return total
+
+
+# ---------------------------------------------------------------------------
+# Listing variant (emits local-id tuples); used by the listing engine
+# ---------------------------------------------------------------------------
+
+def list_rec_C(rows: Sequence[int], cand: int, l: int, prefix: Tuple[int, ...],
+               out: List[Tuple[int, ...]], colors=None, et_t: int = 0) -> None:
+    nv = popcount(cand)
+    if nv < l:
+        return
+    if l == 0:
+        out.append(prefix)
+        return
+    if l == 1:
+        for v in bits(cand):
+            out.append(prefix + (v,))
+        return
+    if l == 2:
+        for v in bits(cand):
+            for w in bits(rows[v] & cand & mask_gt(v)):
+                out.append(prefix + (v, w))
+        return
+    if et_t >= 2:
+        _, t = plex.plexity(rows, cand)
+        if t <= 2:
+            for tup in plex.list_2plex(rows, cand, l):
+                out.append(prefix + tup)
+            return
+        if t <= et_t:
+            for tup in plex.list_tplex(rows, cand, l):
+                out.append(prefix + tup)
+            return
+    for u in bits(cand):
+        for v in bits(rows[u] & cand & mask_gt(u)):
+            sub = cand & rows[u] & rows[v] & mask_gt(v)
+            list_rec_C(rows, sub, l - 2, prefix + (u, v), out, colors, et_t)

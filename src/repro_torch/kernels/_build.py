@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call for Hopper
-(``sm_90a``) into ``build/repro_torch/libkernels-<hash>.so`` under the
+Every ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) by an
+``nvcc`` process of its own, all started together, and the objects are
+linked into ``build/repro_torch/libkernels-<hash>.so`` under the
 repository root, at first use.  The hash covers the sources, the headers
 and the code-generation flags, so an edited source builds a new library
 and an unchanged tree reuses the old one.  The library has a plain C interface and is bound
@@ -27,7 +28,7 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -69,14 +70,39 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *(str(s) for s in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or proc.returncode:
-        print(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    try:
+        failed = []
+        for cmd, proc in procs:  # wait for every compiler, failed or not
+            log = proc.communicate()[0]
+            if verbose or proc.returncode:
+                print(log)
+            if proc.returncode:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}")
+        if failed:
+            raise RuntimeError("; ".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if verbose or proc.returncode:
+            print(proc.stdout + proc.stderr)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a torn file
     return out
 
@@ -88,6 +114,11 @@ def _bind(path: Path) -> ctypes.CDLL:
     so.triangle_count_tiles_launch.restype = i32
     so.clique_count_tiles_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     so.clique_count_tiles_launch.restype = i32
+    so.clique_list_tiles_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                            i32, i32, ptr]
+    so.clique_list_tiles_launch.restype = i32
+    so.edge_candidates_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    so.edge_candidates_launch.restype = i32
     return so
 
 

@@ -5,11 +5,10 @@ Plain torch forms of the reference's base-case set math
 candidate-induced subgraph, on packed words widened to int64 (see
 :mod:`repro_torch.core.bitops`).  They are batched over any leading
 dimensions, and they are the arithmetic that the CUDA kernels in ``csrc/``
-reproduce.  Also here: the input checks every kernel wrapper shares, and
-the host Pascal table of the closed-form 2-plex count.
-
-Still to be ported with the listing slice: the emit scatters
-(``emit_frontier``, ``emit_edges``, ``emit_triangles``).
+reproduce.  Also here: the fixed-capacity emit scatters of the listing
+kernel (``emit_frontier``, ``emit_edges``, ``emit_triangles``), the input
+checks every kernel wrapper shares, and the host Pascal table of the
+closed-form 2-plex count.
 """
 
 from __future__ import annotations
@@ -86,16 +85,120 @@ def triangles_within_chunked(A: torch.Tensor, cand: torch.Tensor,
     return out
 
 
-def check_tiles(A: torch.Tensor, cand: torch.Tensor) -> Tuple[int, int, int]:
-    """Validate a packed batch for the kernels; returns (B, T, W).
+# ---------------------------------------------------------------------------
+# fixed-capacity emit scatters (the listing kernel's plain version)
+# ---------------------------------------------------------------------------
+#
+# The reference scatters with ``count + cumsum(mask) - 1`` and drops ranks
+# past ``capacity``; here ``nonzero`` lists each lane's set mask entries in
+# ascending (lexicographic) order and the rank is the position within the
+# lane, which is the same number.  The scatters write into ``buf`` and add
+# to ``count`` IN PLACE (rows ``lanes`` of them, or every row), since the
+# buffer of a listing batch is up to B x 16384 x l words and copying it on
+# every DFS step would dominate.
 
-    A must be a contiguous (B, T, T//32) int32 word view with T one of
-    :data:`TILE_WIDTHS`, and cand a contiguous (B, T//32) int32 view on
-    the same device.
+
+def unpack_bool(x: torch.Tensor, T: int) -> torch.Tensor:
+    """(..., W) int64 words -> (..., T) bool, bit j of word w at 32w + j.
+
+    One bit plane at a time, so the peak is the bool result plus one
+    word-sized plane (:func:`unpack_bits` builds an int64 value per bit)."""
+    out = torch.empty((*x.shape, WORD), dtype=torch.bool, device=x.device)
+    for j in range(WORD):
+        out[..., j] = ((x >> j) & 1) > 0
+    return out.reshape(*x.shape[:-1], T)
+
+
+def _scatter_rows(buf: torch.Tensor, count: torch.Tensor, flat: torch.Tensor,
+                  prefix: torch.Tensor, npfx: int, ncoord: int, T: int,
+                  capacity: int, lanes: torch.Tensor = None) -> None:
+    """Write row ``prefix[:npfx] + coords(i)`` for every set ``flat[n, i]``.
+
+    flat: (n, T**ncoord) bool mask in lexicographic row order; the
+    coordinates of entry i are its base-T digits.  Lane n's rows land at
+    ``count + rank``; ranks at or past ``capacity`` are dropped while
+    ``count`` takes the true total.  ``lanes`` maps the n lanes to rows of
+    ``buf`` / ``count`` (default: all of them, in order).
     """
-    if A.dtype != torch.int32 or cand.dtype != torch.int32:
-        raise TypeError(
-            f"packed words must be int32 views, got {A.dtype} / {cand.dtype}")
+    if lanes is None:
+        lanes = torch.arange(flat.shape[0], device=flat.device)
+    per = flat.sum(-1)                                   # (n,)
+    lane, i = flat.nonzero(as_tuple=True)                # lex order per lane
+    if lane.numel():
+        start = torch.cumsum(per, 0) - per
+        rank = torch.arange(lane.numel(), device=flat.device) - start[lane]
+        dest = count[lanes[lane]] + rank
+        keep = dest < capacity
+        lane, i, dest = lane[keep], i[keep], dest[keep]
+        cols = [prefix[lane, :npfx]] if npfx else []
+        digits = []
+        for _ in range(ncoord):
+            digits.append(i % T)
+            i = i // T
+        cols.extend(d[:, None] for d in reversed(digits))
+        buf[lanes[lane], dest] = torch.cat(cols, 1).to(buf.dtype)
+    count[lanes] += per
+
+
+def emit_frontier(buf, count, cand, prefix, *, l: int, T: int,
+                  capacity: int, lanes=None):
+    """l' == 1 close: every cand vertex completes the prefix (one column).
+
+    cand: (n, W) int64 words, prefix: (n, >= l-1) int64.  Writes ``buf``
+    and ``count`` in place and returns them."""
+    _scatter_rows(buf, count, unpack_bool(cand, T), prefix, l - 1, 1, T,
+                  capacity, lanes)
+    return buf, count
+
+
+def emit_edges(buf, count, A, cand, gt, prefix, *, l: int, T: int,
+               capacity: int, lanes=None):
+    """l' == 2 close: every edge (u, w), u < w, of the cand-induced
+    subgraph completes the prefix, in row-major (T, T) order.
+
+    A: (n, T, W) int64 words, cand: (n, W), gt: (T, W).  In place."""
+    rows = member_rows(A, cand) & gt
+    e = unpack_bool(rows, T).reshape(rows.shape[0], T * T)
+    _scatter_rows(buf, count, e, prefix, l - 2, 2, T, capacity, lanes)
+    return buf, count
+
+
+def emit_triangles(buf, count, A, cand, gt, prefix, *, l: int, T: int,
+                   capacity: int, lanes=None, budget: int = 256 << 20):
+    """Whole-tile triangle emit: every triangle (v, u, w), v < u < w, of the
+    cand-induced subgraph completes the prefix, in lexicographic order.
+
+    The (n, T, T, W) pair intersection ``rows[v] & rows[u] & gt[u]`` over
+    the edges v < u is unpacked to a (T, T, T) bool mask, chunked over the
+    lanes so each chunk stays under ``budget`` bytes.  In place."""
+    n = A.shape[0]
+    if lanes is None:
+        lanes = torch.arange(n, device=A.device)
+    W = A.shape[-1]
+    step = max(1, budget // (T * T * (T + 2 * W * 8)))
+    for b0 in range(0, n, step):
+        sl = slice(b0, b0 + step)
+        rows = member_rows(A[sl], cand[sl])              # (b, T, W)
+        edge_vu = unpack_bool(rows & gt, T)              # (b, T, T)
+        pair = rows[:, :, None, :] & rows[:, None, :, :] & gt
+        pair = torch.where(edge_vu[..., None], pair, torch.zeros_like(pair))
+        tri = unpack_bool(pair, T).reshape(pair.shape[0], T * T * T)
+        _scatter_rows(buf, count, tri, prefix[sl], l - 3, 3, T, capacity,
+                      lanes[sl])
+    return buf, count
+
+
+def to_words(x: torch.Tensor) -> torch.Tensor:
+    """int64 words holding unsigned 32-bit values -> their int32 view."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def check_adjacency(A: torch.Tensor) -> Tuple[int, int, int]:
+    """Validate packed tiles for the kernels: a contiguous (B, T, T//32)
+    int32 word view with T one of :data:`TILE_WIDTHS`.  Returns (B, T, W).
+    """
+    if A.dtype != torch.int32:
+        raise TypeError(f"packed words must be an int32 view, got {A.dtype}")
     if A.dim() != 3:
         raise ValueError(f"A must be (B, T, W), got shape {tuple(A.shape)}")
     B, T, W = A.shape
@@ -103,13 +206,28 @@ def check_tiles(A: torch.Tensor, cand: torch.Tensor) -> Tuple[int, int, int]:
         raise ValueError(
             f"tile shape (T={T}, W={W}) must have T in {TILE_WIDTHS} and "
             f"W == T // 32")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    return B, T, W
+
+
+def check_tiles(A: torch.Tensor, cand: torch.Tensor) -> Tuple[int, int, int]:
+    """Validate a packed batch for the kernels; returns (B, T, W).
+
+    A as :func:`check_adjacency` takes it, and cand a contiguous
+    (B, T//32) int32 view on the same device.
+    """
+    B, T, W = check_adjacency(A)
+    if cand.dtype != torch.int32:
+        raise TypeError(f"packed words must be an int32 view, got "
+                        f"{cand.dtype}")
     if tuple(cand.shape) != (B, W):
         raise ValueError(
             f"cand must be ({B}, {W}), got shape {tuple(cand.shape)}")
     if A.device != cand.device:
         raise ValueError(f"A on {A.device} but cand on {cand.device}")
-    if not (A.is_contiguous() and cand.is_contiguous()):
-        raise ValueError("A and cand must be contiguous")
+    if not cand.is_contiguous():
+        raise ValueError("cand must be contiguous")
     return B, T, W
 
 

@@ -1,5 +1,5 @@
-"""Kernel routing for per-tile clique counting (port of the counting half
-of ``repro/kernels/ops.py``).
+"""Kernel routing for per-tile clique counting and listing (port of
+``repro/kernels/ops.py``).
 
 :func:`count_tiles` routes by l = k - 2 exactly as the reference's Pallas
 family does:
@@ -12,26 +12,31 @@ family does:
 * ``"dfs"`` pins the DFS kernel, l == 3 included;
 * ``"ref"`` runs the expansion oracle of :mod:`repro_torch.kernels.ref`.
 
-l <= 2 takes closed forms and no kernel.  Each kernel wrapper sends a CUDA
+l <= 2 takes closed forms and no kernel.  :func:`list_tiles` lists every
+l-clique of each tile through :mod:`repro_torch.kernels.clique_list`, and
+:func:`edge_candidates` builds edge-branch candidate sets through
+:mod:`repro_torch.kernels.intersect`.  Each kernel wrapper sends a CUDA
 tensor to its CUDA kernel and a CPU tensor to its plain torch version; the
 launch counters below show which ran.
 
-Still to be ported: ``list_tiles`` (listing slice), ``autotune`` and the
-backend registry (tune slice), ``edge_candidates``.
+Still to be ported: ``autotune`` and the backend registry (tune slice).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from . import clique_count as _cc
+from . import clique_list as _cl
+from . import intersect as _is
 from . import ref as _ref
 from . import triangle_mm as _tm
 
 METHODS = ("auto", "mxu", "dfs", "ref")
 
-_KERNELS = {"triangle_count_tiles": _tm, "clique_count_tiles": _cc}
+_KERNELS = {"triangle_count_tiles": _tm, "clique_count_tiles": _cc,
+            "clique_list_tiles": _cl, "edge_candidates": _is}
 
 
 def count_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
@@ -50,6 +55,25 @@ def count_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
             raise ValueError("the triangle kernel implements l == 3 only")
         return _tm.triangle_count_tiles(A, cand)
     return _cc.clique_count_tiles(A, cand, l)
+
+
+def list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int, capacity: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """List l-cliques per tile into fixed-capacity local-id buffers.
+
+    (B,T,W) int32 x (B,W) int32 -> (out (B,capacity,l) int32, count (B,)
+    int64 true totals holding uint32 values, overflow (B,) int64).
+    Overflowed tiles keep the true count but only the first ``capacity``
+    cliques; callers must relist them on the host, never truncate.
+    """
+    return _cl.clique_list_tiles(A, cand, l, capacity)
+
+
+def edge_candidates(A: torch.Tensor, pairs: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate sets N(a) & N(b) & gt(b) of each tile's pair (a, b) and
+    their sizes: (B,T,W) int32 x (B,2) int32 -> ((B,W) int32, (B,) int64)."""
+    return _is.edge_candidates(A, pairs)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -4,8 +4,9 @@
 They take the int32 word views the kernels take and return per-tile counts
 as int64 holding the reference's uint32 values (wrap mod 2**32).  The
 expansion recursion of :func:`clique_count_tiles_ref` needs memory
-O(B * T**(l-2)): tests and small cross-checks only.  Still to be ported
-with ``edge_candidates``: ``edge_candidates_ref``.
+O(B * T**(l-2)): tests and small cross-checks only.  The twin of
+``edge_candidates_ref`` is ``intersect.edge_candidates_torch``, the plain
+version beside its kernel.
 """
 from __future__ import annotations
 

@@ -1,15 +1,19 @@
-"""k-clique counting from the command line, on the port's device engine.
+"""k-clique counting and listing from the command line, on the port's
+device engines.
 
 ``python -m repro_torch.launch.clique --graph rmat:12 --k 5 --verify``
+``python -m repro_torch.launch.clique --graph rmat:10 --k 5 --list --verify``
 
 Host preprocessing (truss order cached in a PipelinePlan) -> vectorized
 extraction + capacity-batched packing on a pool of pack threads -> the CUDA
 kernels, one packed batch at a time -> exact host combine.  Oversize tiles
-spill to the host recursion.  It runs on the CUDA device; ``--device cpu``
-runs the plain torch versions instead.
+spill to the host recursion.  ``--list`` lists the cliques through the
+list kernel instead (``--sink PATH`` writes them to an NPZ, ``--max-out N``
+stops after N).  It runs on the CUDA device; ``--device cpu`` runs the
+plain torch versions instead.
 
-Still to be ported from the reference launcher: ``--list``, ``--sink``,
-``--max-out``, ``--devices``, ``--shard-map``, ``--offline-lpt``,
+Still to be ported from the reference launcher: ``--devices``,
+``--shard-map``, ``--offline-lpt``,
 ``--sync-staging``, ``--backend``, ``--tune-cache``, ``--fault-plan``,
 ``--trace-out``, ``--metrics-port``, ``--plan-cache``, ``--log-level``.
 """
@@ -18,7 +22,9 @@ from __future__ import annotations
 import argparse
 import time
 
-from ..core import ebbkc, engine_torch, pipeline
+import numpy as np
+
+from ..core import ebbkc, engine_torch, listing, pipeline
 from ..core.graph import Graph
 from ..data import graphs as gdata
 
@@ -52,6 +58,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help='torch device to count on (default "cuda"; '
                          '"cpu" runs the plain torch versions)')
+    ap.add_argument("--list", action="store_true", dest="list_mode",
+                    help="list the cliques through the list kernel instead "
+                         "of counting them")
+    ap.add_argument("--sink", default=None, metavar="PATH",
+                    help="with --list: write the cliques to PATH as an NPZ "
+                         "(key 'cliques'); default is an in-memory buffer")
+    ap.add_argument("--max-out", type=int, default=None,
+                    help="with --list: stop after this many cliques")
     ap.add_argument("--verify", action="store_true",
                     help="cross-check against the host engine")
     args = ap.parse_args(argv)
@@ -62,6 +76,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     plan = pipeline.cached_plan(g, order=args.order)
     t_plan = time.perf_counter() - t0
+    if args.list_mode:
+        return _list(args, g, plan, device)
 
     stage = {}
     t0 = time.perf_counter()
@@ -86,6 +102,46 @@ def main(argv=None) -> int:
         if ref != res.count:
             return 1
     return 0
+
+
+def _list(args, g: Graph, plan: pipeline.PipelinePlan, device) -> int:
+    """``--list``: stream the cliques into the sink; with ``--verify``,
+    hold the rows as a set against the host recursion's and their number
+    against the host count."""
+    sink = (listing.NpzSink(args.sink, args.k, max_out=args.max_out)
+            if args.sink else listing.ArraySink(args.k, max_out=args.max_out))
+    stage = {}
+    t0 = time.perf_counter()
+    res = listing.stream_cliques(plan, args.k, sink, order=args.order,
+                                 batch_size=args.batch_size,
+                                 pack_workers=args.pack_workers,
+                                 stage_times=stage, device=device)
+    t_list = time.perf_counter() - t0
+    sink.close()
+    st = res.stats
+    rate = st.emitted_cliques / max(t_list, 1e-9)
+    print(f"k={args.k}: listed {st.emitted_cliques} cliques in "
+          f"{t_list:.2f}s ({rate:.0f} cliques/s, {st.sink_bytes} sink bytes"
+          f"{', -> ' + args.sink if args.sink else ''})")
+    print(f"tiles={res.tiles} spilled={st.spilled_tiles} "
+          f"overflowed={st.overflowed_tiles} backend={st.backend} "
+          f"pack_workers={st.pack_workers} device={stage.get('device', 0.0):.2f}s "
+          f"decode={stage.get('decode', 0.0):.2f}s")
+    if not args.verify:
+        return 0
+    rows = (np.load(args.sink)["cliques"] if args.sink else sink.result())
+    host, _ = ebbkc.list_cliques(g, args.k, order=args.order, plan=plan,
+                                 backend="host")
+    ref = ebbkc.count(g, args.k, order=args.order, plan=plan,
+                      backend="host").count
+    want = ref if args.max_out is None else min(args.max_out, ref)
+    host_set = set(map(tuple, host.tolist()))
+    got_set = set(map(tuple, rows.tolist()))
+    ok = (rows.shape[0] == st.emitted_cliques == want
+          and len(got_set) == rows.shape[0] and got_set <= host_set
+          and (args.max_out is not None or got_set == host_set))
+    print(f"host count: {ref}  match={ok}")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

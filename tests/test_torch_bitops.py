@@ -114,16 +114,22 @@ def test_pascal_table_matches():
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Importing the port's front door and launcher loads neither jax nor
-    any ``repro`` module (a fresh interpreter: this one imported jax)."""
-    code = ("import sys\n"
-            "import repro_torch.core.ebbkc, repro_torch.launch.clique\n"
-            "import repro_torch.convert, repro_torch.kernels.ops\n"
+    """Importing every module of the port, and ``chip_smoke.py``, loads
+    neither jax nor any ``repro`` module (a fresh interpreter: this one
+    imported jax)."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert "repro_torch.core.listing" in mods
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m.removesuffix('.__init__'))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                                       str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

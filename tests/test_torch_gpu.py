@@ -7,16 +7,19 @@ that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain torch version on the same inputs,
-with exact equality (tolerance 0): the counts are integers.
+with exact equality (tolerance 0): counts, candidate words and listed
+local ids are integers, and the list buffers are compared whole, zero
+padding included.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ebbkc, engine_torch
+from repro_torch.core import ebbkc, engine_torch, listing
 from repro_torch.core.bitops import pack_bits
 from repro_torch.data import graphs
-from repro_torch.kernels import clique_count, ops, triangle_mm
+from repro_torch.kernels import (clique_count, clique_list, intersect, ops,
+                                 triangle_mm)
 
 pytestmark = pytest.mark.gpu
 
@@ -84,3 +87,87 @@ def test_engine_on_card_matches_cpu_and_host(cuda, k):
     assert got == ebbkc.count(g, k, backend="host").count
     if k >= 5:
         assert sum(ops.launch_counts().values()) > 0
+
+
+def cliquey_tiles(seed, B, T, s_max=20, p=0.7):
+    """Tiles whose cands are up to ``s_max`` vertices scattered over all T
+    slots, dense inside and sparse outside; lane 0 has an empty cand over
+    a non-empty A, lane 1 holds bit 31 of every word."""
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((B, T, T), dtype=bool)
+    cmask = np.zeros((B, T), dtype=bool)
+    for b in range(B):
+        members = rng.choice(T, size=int(rng.integers(0, s_max + 1)),
+                             replace=False)
+        if b == 1:
+            members = np.unique(np.concatenate(
+                [np.arange(31, T, 32), members]))[:s_max]
+        cmask[b, members] = b != 0
+        both = cmask[b][:, None] & cmask[b][None, :]
+        dense[b] = np.triu(np.where(both, rng.random((T, T)) < p,
+                                    rng.random((T, T)) < 0.05), 1)
+    dense[0] |= np.triu(rng.random((T, T)) < 0.5, 1)
+    dense |= dense.transpose(0, 2, 1)
+    return (torch.from_numpy(pack_bits(dense)).view(torch.int32),
+            torch.from_numpy(pack_bits(cmask)).view(torch.int32))
+
+
+@pytest.mark.parametrize("T", BINS)
+@pytest.mark.parametrize("l", [1, 2, 3, 4, 5, 6])
+def test_list_kernel_matches_plain_on_card(cuda, T, l):
+    A, cand = (x.to(cuda) for x in cliquey_tiles(100 * l + T, 37, T,
+                                                s_max=18 if l >= 5 else 24))
+    counts = clique_count.clique_count_tiles(A, cand, l).cpu().numpy()
+    before = ops.launch_counts()["clique_list_tiles"]
+    caps = sorted({1, max(1, int(counts.max()) - 1),
+                   listing.capacity_for(counts)})
+    for cap in caps:
+        got = clique_list.clique_list_tiles(A, cand, l, cap)
+        want = clique_list.clique_list_tiles_torch(A, cand, l, cap)
+        for x, y in zip(got, want):
+            assert x.device.type == "cuda" and torch.equal(x, y), (T, l, cap)
+        assert np.array_equal(got[1].cpu().numpy(), counts)
+    assert ops.launch_counts()["clique_list_tiles"] == before + len(caps)
+
+
+@pytest.mark.parametrize("T", BINS)
+def test_edge_candidates_match_plain_on_card(cuda, T):
+    A, _ = cliquey_tiles(T, 75, T, s_max=T, p=0.6)
+    rng = np.random.default_rng(T)
+    a = rng.integers(0, T - 1, 75)
+    b = a + 1 + rng.integers(0, T - 1 - a)
+    pairs = torch.from_numpy(np.stack([a, b], 1).astype(np.int32))
+    A, pairs = A.to(cuda), pairs.to(cuda)
+    before = ops.launch_counts()["edge_candidates"]
+    got = intersect.edge_candidates(A, pairs)
+    want = intersect.edge_candidates_torch(A, pairs)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert ops.launch_counts()["edge_candidates"] == before + 1
+
+
+def test_list_wrappers_reject_bad_input_on_card(cuda):
+    A, cand = (x.to(cuda) for x in cliquey_tiles(1, 4, 32))
+    with pytest.raises(ValueError):
+        clique_list.clique_list_tiles(A, cand, clique_list.L_MAX + 1, 4)
+    with pytest.raises(ValueError):
+        clique_list.clique_list_tiles(A, cand, 4, 0)
+    with pytest.raises(ValueError):
+        intersect.edge_candidates(A, torch.full((4, 2), 32, dtype=torch.int32,
+                                                device=cuda))
+    buf, cnt, ovf = clique_list.clique_list_tiles(A[:0], cand[:0], 4, 8)
+    assert buf.shape == (0, 8, 4) and cnt.shape == ovf.shape == (0,)
+
+
+@pytest.mark.parametrize("k", [3, 4, 5, 6, 7])
+def test_list_cliques_on_card_matches_cpu_and_host(cuda, k):
+    g = graphs.planted_cliques(300, 6, 14, p_noise=0.03, seed=11)
+    ops.reset_counts()
+    got, st = ebbkc.list_cliques(g, k, device=cuda)
+    assert np.array_equal(got, ebbkc.list_cliques(g, k, device="cpu")[0])
+    host, _ = ebbkc.list_cliques(g, k, backend="host")
+    assert sorted(map(tuple, got.tolist())) == sorted(map(tuple,
+                                                          host.tolist()))
+    assert ops.launch_counts()["clique_list_tiles"] > 0
+    small, st = ebbkc.list_cliques(g, k, device=cuda,
+                                   engine_kwargs=dict(capacity=2))
+    assert np.array_equal(small, got) and st.overflowed_tiles > 0

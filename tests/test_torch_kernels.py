@@ -214,9 +214,15 @@ def test_cpu_tensor_takes_plain_version_not_kernel():
     ops.count_tiles(A, cand, 3)
     ops.count_tiles(A, cand, 5)
     assert ops.launch_counts() == {"triangle_count_tiles": 0,
-                                   "clique_count_tiles": 0}
+                                   "clique_count_tiles": 0,
+                                   "clique_list_tiles": 0,
+                                   "edge_candidates": 0}
     assert ops.plain_counts() == {"triangle_count_tiles": 1,
-                                  "clique_count_tiles": 1}
+                                  "clique_count_tiles": 1,
+                                  "clique_list_tiles": 0,
+                                  "edge_candidates": 0}
     ops.reset_counts()
     assert ops.plain_counts() == {"triangle_count_tiles": 0,
-                                  "clique_count_tiles": 0}
+                                  "clique_count_tiles": 0,
+                                  "clique_list_tiles": 0,
+                                  "edge_candidates": 0}
