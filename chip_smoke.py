@@ -224,7 +224,8 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
     from repro_torch.kernels.ref import edges_within_ref
     B, T, W = check_tiles(A, cand)
     so = _build.lib()
-    out = torch.empty(B, dtype=torch.int32, device=A.device)
+    out = torch.empty(B + 2, dtype=torch.int32, device=A.device)
+    items = clique_count.item_list(B, T, A.device)
     stream = torch.cuda.current_stream().cuda_stream
     nbytes = A.numel() * 4 + cand.numel() * 4 + B * 4
     results = []
@@ -251,8 +252,13 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
                                                               work))
 
             def launch():
+                # the wrapper's work: zero the counts and the two item
+                # counters (out[B:]), then the branch and item passes
+                out.zero_()
                 so.clique_count_tiles_launch(A.data_ptr(), cand.data_ptr(),
-                                             out.data_ptr(), B, T, l, stream)
+                                             out.data_ptr(), items.data_ptr(),
+                                             out[B:].data_ptr(), B, T, l,
+                                             stream)
             # 2 word ops (AND, popcount) per word of every DFS step, and
             # 4 (two ANDs, popcount, add) per word of every closing edge
             word_ops = 2 * W * int(work["steps"].sum()) + \
@@ -264,6 +270,10 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
                  f"{bad} kernel {got[bad].tolist()} plain {want[bad].tolist()}")
         errs[kernel] = max(errs.get(kernel, 0),
                            int((got - want).abs().max()) if B else 0)
+        if kernel == "dfs":
+            item_case(rows, errs, A, cand, l, tag, want, reps)
+        # times are taken with the batch resident in L2, as the engine finds
+        # it right after its H2D copy
         ms = time_ms(launch, reps)
         bound_ms, bound_by = bound(nbytes, word_ops)
         row = {"kernel": kernel, "case": tag, "T": T, "l": l, "B": B,
@@ -281,13 +291,60 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
     return results
 
 
+def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20):
+    """The count per first-level branch (the kernels' branch and item
+    passes, summed per (tile, v)) vs its plain version: the (B, T) counts
+    must be ``torch.equal``, and their row sums mod 2**32 the tiles'
+    counts.  Times the bare C entry point (no launch counted) with its
+    zero fills."""
+    import torch
+    from repro_torch.kernels import _build, clique_count
+    from repro_torch.kernels.common import MASK32, check_tiles
+    B, T, W = check_tiles(A, cand)
+    got = clique_count.clique_count_items(A, cand, l)
+    want, plain_ms = timed_once(
+        lambda: clique_count.clique_count_items_torch(A, cand, l))
+    if not torch.equal(got, want):
+        bad = (got != want).any(-1).nonzero()[:5, 0].tolist()
+        fail(f"item pass != plain at T={T} l={l} ({tag}): tiles {bad}")
+    if not torch.equal(want.sum(-1) & MASK32, tile_counts):
+        fail(f"item counts do not sum to the tile counts at T={T} l={l} "
+             f"({tag})")
+    errs["items"] = max(errs.get("items", 0),
+                        int((got - want).abs().max()) if B else 0)
+    so = _build.lib()
+    per_v = torch.empty((B, T), dtype=torch.int64, device=A.device)
+    items = clique_count.item_list(B, T, A.device)
+    counters = torch.empty(2, dtype=torch.int32, device=A.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        per_v.zero_()
+        counters.zero_()
+        so.clique_count_items_launch(A.data_ptr(), cand.data_ptr(),
+                                     per_v.data_ptr(), items.data_ptr(),
+                                     counters.data_ptr(), B, T, l, stream)
+    ms = time_ms(launch, reps)
+    kept = int((want > 0).sum())
+    heaviest = want.max(-1).values
+    row = {"kernel": "items", "case": tag, "T": T, "l": l, "B": B, "ms": ms,
+           "plain_ms": plain_ms, "items_with_rows": kept,
+           "max_item_share": float((heaviest.double() / want.sum(-1).clamp(
+               min=1).double()).max()) if B else 0.0}
+    rows.append(row)
+    log(f"  items    {tag:17s} T={T:3d} l={l} B={B:3d}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, {kept} items with cliques, largest item "
+        f"share of its tile {row['max_item_share']:.3f}")
+    return row
+
+
 def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
     """List kernel vs plain on one input at capacity ``cap``: buffer (zero
     padding included), count and overflow must be ``torch.equal``.  With
     ``reps`` it also times the bare C entry point (no launch counted), the
     zero fill a ``torch.zeros`` buffer would add, and the bound."""
     import torch
-    from repro_torch.kernels import _build, clique_list
+    from repro_torch.kernels import _build, clique_count, clique_list
     from repro_torch.kernels.common import check_tiles
     B, T, W = check_tiles(A, cand)
     got = clique_list.clique_list_tiles(A, cand, l, cap)
@@ -305,16 +362,27 @@ def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
     count = want[1]
     if not reps:
         return count
+    item_case(rows, errs, A, cand, l, tag, count, reps)
     so = _build.lib()
     buf = torch.empty((B, cap, l), dtype=torch.int32, device=A.device)
     cnt = torch.empty(B, dtype=torch.int32, device=A.device)
     ovf = torch.empty(B, dtype=torch.int32, device=A.device)
+    per_x = torch.empty((B, T, T), dtype=torch.int64, device=A.device)
+    items = clique_count.item_list(B, T, A.device)
+    counters = torch.empty(3, dtype=torch.int32, device=A.device)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
+        # the wrapper's work: zero the per-item counts and the counters,
+        # then the four device passes (branch, count, scan, emit)
+        per_x.zero_()
+        counters.zero_()
         so.clique_list_tiles_launch(A.data_ptr(), cand.data_ptr(),
                                     buf.data_ptr(), cnt.data_ptr(),
-                                    ovf.data_ptr(), B, T, l, cap, stream)
+                                    ovf.data_ptr(), per_x.data_ptr(),
+                                    items.data_ptr(), counters.data_ptr(), B,
+                                    T, l, cap, stream)
+    # with the batch resident in L2, as the engine finds it after its H2D
     ms = time_ms(launch, reps)
     zero_ms = time_ms(buf.zero_, reps)
     written = int(torch.clamp(count, max=cap).sum())
@@ -393,6 +461,55 @@ def first_edges(A):
     return torch.stack([first // T, first % T], 1).to(torch.int32)
 
 
+def ptxas_report(text: str):
+    """Registers, stack frame and spills of each DFS kernel entry in the
+    ``-Xptxas -v`` output, keyed by a short name (kernel and template
+    arguments)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"(branch_kernel|item_kernel|list_emit_kernel|"
+                          r"list_scan_kernel)(I.*?EE)?", sym)
+            name = None
+            if k:
+                # template arguments: ILi1E... (W), LNS0_7ItemOutE0E (mode)
+                args = re.findall(r"L(?:i|N\w*?E)(\d+)E", k.group(2) or "")
+                name = k.group(1) + ("<" + ",".join(args) + ">" if args
+                                     else "")
+                out.setdefault(name, {"registers": None, "stack": None,
+                                      "spill_stores": None,
+                                      "spill_loads": None})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def skewed_batch(A, cand, counts, B: int = 256):
+    """One tile -- the heaviest of a main-path batch -- among B - 1 tiles
+    with an empty cand: the batch in which the slowest tile sets the
+    time of a launch that gives each tile one worker."""
+    import torch
+    heavy = int(counts.argmax())
+    A2 = A[:1].expand(B, -1, -1).clone()
+    A2[17] = A[heavy]
+    c2 = torch.zeros((B, cand.shape[1]), dtype=cand.dtype, device=cand.device)
+    c2[17] = cand[heavy]
+    return A2, c2
+
+
 def batches_per_bin(plan, k: int):
     """Packed batches the engines stream for ``k``, per bin."""
     import numpy as np
@@ -432,8 +549,16 @@ def main(argv=None) -> int:
 
     # -- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
-    _build.lib(verbose=True)
+    nvcc_log = io.StringIO()
+    with contextlib.redirect_stdout(nvcc_log):
+        _build.lib(verbose=True)
     build_s = time.perf_counter() - t0
+    log(nvcc_log.getvalue().rstrip())
+    ptxas = ptxas_report(nvcc_log.getvalue())
+    for name, info in ptxas.items():
+        log(f"[ptxas] {name}: {info['registers']} registers, "
+            f"{info['stack']} B stack frame, {info['spill_stores']} B spill "
+            f"stores, {info['spill_loads']} B spill loads")
     # for comparison only: the same sources in one nvcc call, run after
     # the parallel build (so with the compiler's files already cached)
     one = _build.BUILD_DIR / "one-call.tmp.so"
@@ -552,8 +677,30 @@ def main(argv=None) -> int:
                 for r in kernel_cases(rows, errs, A, cand, l, tag, reps=50):
                     real[(r["kernel"], T, l, which)] = r
                 log(f"    ({live} of {A.shape[0]} tiles reach the kernel)")
-    if not any(r["B"] % 4 for r in real.values()):
-        fail("no compared main-path batch leaves a DFS block partly empty")
+    # the branch pass runs one group of W = T/32 lanes for each of the T * B
+    # first-level branches, 8192 / T groups a block of 256 threads
+    if not any((r["T"] * r["B"]) % (8192 // r["T"])
+               for r in real.values() if r["kernel"] == "dfs"):
+        fail("no compared main-path batch leaves the branch pass's last "
+             "block partly empty")
+
+    # -- a skewed batch: one heavy tile among empty ones ---------------------
+    log("[kernels] skewed batches: the heaviest tile of a main-path k=7 "
+        "sample among 255 tiles with an empty cand")
+    from repro_torch.kernels import clique_count
+    for T in (64, 128):
+        for which, A, cand, _ in main_path_batches(plan, 7, T):
+            if which != "sample":
+                continue
+            counts = clique_count.clique_count_tiles(A, cand, 5)
+            A2, c2 = skewed_batch(A, cand, counts)
+            r = kernel_cases(rows, errs, A2, c2, 5, "skewed k=7", reps=20)[0]
+            real[("dfs", T, 5, "skewed")] = r
+            n2 = clique_count.clique_count_tiles(A2, c2, 4).cpu().numpy()
+            cap = listing.capacity_for(n2)
+            for c in sorted({1, max(1, cap // 3), cap}):
+                list_case(rows, errs, A2, c2, 4, c, "skewed l=4",
+                          reps=20 if c == cap else 0)
 
     # -- the listing path at full size ---------------------------------------
     lg = rmat_graph(LIST_SCALE, edge_factor=RMAT_EDGE_FACTOR, seed=RMAT_SEED)
@@ -743,6 +890,7 @@ def main(argv=None) -> int:
              "list_main": list_runs, "launches": count_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,
+             "ptxas": ptxas,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(header)

@@ -4,15 +4,21 @@ Port of the Pallas kernel ``repro/kernels/clique_count.py``
 (``clique_count_tiles``): an explicit-stack bitset DFS per tile that
 descends until three levels remain and closes there with the triangle count
 of the candidate-induced subgraph.  On Hopper the kernel is hand-written
-CUDA (``csrc/clique_count.cu``), one warp per tile.  It walks the DFS in the
-todo-stack form of ``repro/kernels/lax_backend.py`` (``_count_tile_dfs``):
-take the lowest set bit v of the frontier, ``sub = after & A[v]``, close at
-depth ``l - 4``, push when ``popcount(sub) >= l - depth - 1``, pop on an
-empty frontier.  l <= 3 is closed inline, as in the Pallas kernel.
+CUDA (``csrc/clique_count.cu``).  It walks the DFS in the todo-stack form
+of ``repro/kernels/lax_backend.py`` (``_count_tile_dfs``): take the lowest
+set bit v of the frontier, ``sub = after & A[v]``, close at depth ``l - 4``,
+push when ``popcount(sub) >= l - depth - 1``, pop on an empty frontier.  The
+kernel splits each tile's DFS into its second-level branches, the items
+(tile b, v, x) with x in ``sub = cand & A[v] & gt(v)``: item (b, v, x)
+counts the (l-2)-cliques of ``sub & A[x] & gt(x)``, and a tile's count is
+the sum of its items'.
 
 :func:`clique_count_tiles` is the wrapper: a CUDA tensor goes to the
 kernel, a CPU tensor to the plain version :func:`clique_count_tiles_torch`,
 which takes the role ``lax_backend`` plays for counting in the reference.
+:func:`clique_count_items` gives the count per first-level branch
+(tile b, v), the items' counts summed over x, with its plain version
+:func:`clique_count_items_torch`.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ import torch
 
 from . import _build
 from .common import (MASK32, WORD, check_tiles, edges_within, gt_masks,
-                     popcount_words, triangles_within_chunked, widen)
+                     popcount_words, triangles_within_chunked, unpack_bits,
+                     widen)
 
 #: largest l the CUDA kernel's stack holds (its kLMax)
 L_MAX = 16
@@ -31,6 +38,11 @@ L_MAX = 16
 launches = 0
 #: calls of the plain version so far
 plain_calls = 0
+#: launches of the per-branch count (:func:`clique_count_items`) so far
+item_launches = 0
+
+#: items the plain item version runs through one DFS at most
+_ITEM_CHUNK = 4096
 
 
 def clique_count_tiles_torch(A: torch.Tensor, cand: torch.Tensor, l: int,
@@ -49,21 +61,28 @@ def clique_count_tiles_torch(A: torch.Tensor, cand: torch.Tensor, l: int,
     plain_calls += 1
     B, T, W = check_tiles(A, cand)
     _check_l(l)
-    A64, c64 = widen(A), widen(cand)
-    gt = gt_masks(T, A.device)
+    return _count(widen(A), widen(cand), l, work) & MASK32
+
+
+def _count(A64: torch.Tensor, c64: torch.Tensor, l: int,
+           work: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """The DFS of :func:`clique_count_tiles_torch` on widened words, exact
+    in int64 (each close's triangle count is below 2**32)."""
+    B, T, W = A64.shape
+    gt = gt_masks(T, A64.device)
     if work is not None:
-        work["steps"] = torch.zeros(B, dtype=torch.int64, device=A.device)
+        work["steps"] = torch.zeros(B, dtype=torch.int64, device=A64.device)
         work["close_edges"] = torch.zeros(B, dtype=torch.int64,
-                                          device=A.device)
+                                          device=A64.device)
     if l == 1:
-        return popcount_words(c64).sum(-1) & MASK32
+        return popcount_words(c64).sum(-1)
     if l == 2:
         return edges_within(A64, c64, gt)
     if l == 3:
         if work is not None:
             work["close_edges"] += edges_within(A64, c64, gt)
         return triangles_within_chunked(A64, c64, gt)
-    dev = A.device
+    dev = A64.device
     stack = torch.zeros((B, l - 3, W), dtype=torch.int64, device=dev)
     stack[:, 0] = c64
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -99,7 +118,34 @@ def clique_count_tiles_torch(A: torch.Tensor, cand: torch.Tensor, l: int,
         depth[a] = torch.where(any_bit, nxt, d - 1)
         if work is not None:
             work["steps"][a] += any_bit.to(torch.int64)
-    return count & MASK32
+    return count
+
+
+def clique_count_items_torch(A: torch.Tensor, cand: torch.Tensor,
+                             l: int) -> torch.Tensor:
+    """Plain version of the per-branch count: (B,T,W), (B,W) int32 ->
+    (B, T) int64.
+
+    Entry (b, v) is the number of l-cliques of tile b whose lowest vertex is
+    v: the (l-1)-cliques of ``sub = cand & A[v] & gt(v)``, exact in int64.
+    It is 0 where v is not in cand or ``popcount(sub) < l - 1`` (the
+    kernels drop those branches).  Row sums mod 2**32 are
+    :func:`clique_count_tiles_torch`.
+    """
+    B, T, W = check_tiles(A, cand)
+    _check_l(l)
+    A64, c64 = widen(A), widen(cand)
+    sub = c64[:, None, :] & A64 & gt_masks(T, A.device)        # (B, T, W)
+    kept = ((unpack_bits(c64, T) > 0)
+            & (popcount_words(sub).sum(-1) >= l - 1)).nonzero()
+    out = torch.zeros((B, T), dtype=torch.int64, device=A.device)
+    for lo in range(0, kept.shape[0], _ITEM_CHUNK):
+        b, v = kept[lo:lo + _ITEM_CHUNK].unbind(1)
+        if l == 1:
+            out[b, v] = 1
+        else:
+            out[b, v] = _count(A64[b], sub[b, v], l - 1)
+    return out
 
 
 def _check_l(l: int) -> None:
@@ -118,15 +164,55 @@ def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
         return clique_count_tiles_torch(A, cand, l)
     if A.device.type != "cuda":
         raise ValueError(f"no clique kernel for device {A.device}")
-    out = torch.empty(B, dtype=torch.int32, device=A.device)
+    # out[:B] the counts, out[B:] the kernel's two item counters, all 0
+    out = torch.zeros(B + 2, dtype=torch.int32, device=A.device)
     if B:
+        items = item_list(B, T, A.device)
         so = _build.lib()
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = so.clique_count_tiles_launch(
-                A.data_ptr(), cand.data_ptr(), out.data_ptr(), B, T, l, stream)
+                A.data_ptr(), cand.data_ptr(), out.data_ptr(), items.data_ptr(),
+                out[B:].data_ptr(), B, T, l, stream)
         if rc:
             raise RuntimeError(f"clique_count_tiles launch failed: CUDA "
                                f"error {rc}")
         launches += 1
-    return out.to(torch.int64) & MASK32
+    return out[:B].to(torch.int64) & MASK32
+
+
+def item_list(B: int, T: int, device: torch.device) -> torch.Tensor:
+    """Scratch for the kernels' list of items (tile, v, x): room for every
+    pair v <= x of every tile, packed into 32 bits (so B < 2**16)."""
+    if B >= 1 << 16:
+        raise ValueError(f"the DFS kernels take fewer than 65536 tiles a "
+                         f"batch, got {B}")
+    return torch.empty(B * T * (T + 1) // 2, dtype=torch.int32, device=device)
+
+
+def clique_count_items(A: torch.Tensor, cand: torch.Tensor,
+                       l: int) -> torch.Tensor:
+    """(B, T, W) int32, (B, W) int32 -> (B, T) int64: the l-cliques of each
+    tile per lowest vertex (see :func:`clique_count_items_torch`)."""
+    global item_launches
+    B, T, _ = check_tiles(A, cand)
+    _check_l(l)
+    if A.device.type == "cpu":
+        return clique_count_items_torch(A, cand, l)
+    if A.device.type != "cuda":
+        raise ValueError(f"no clique kernel for device {A.device}")
+    per_v = torch.zeros((B, T), dtype=torch.int64, device=A.device)
+    if B:
+        items = item_list(B, T, A.device)
+        counters = torch.zeros(2, dtype=torch.int32, device=A.device)
+        so = _build.lib()
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = so.clique_count_items_launch(
+                A.data_ptr(), cand.data_ptr(), per_v.data_ptr(),
+                items.data_ptr(), counters.data_ptr(), B, T, l, stream)
+        if rc:
+            raise RuntimeError(f"clique_count_items launch failed: CUDA "
+                               f"error {rc}")
+        item_launches += 1
+    return per_v

@@ -16,7 +16,11 @@ bit v of the frontier, ``sub = after & A[v]``, close at depth ``l - 3`` by
 scattering the edge frontier of ``sub`` behind the prefix of branch
 vertices, push when ``popcount(sub) >= l - depth - 1``, pop on an empty
 frontier.  On Hopper the kernel is hand-written CUDA
-(``csrc/clique_list.cu``), one warp per tile.
+(``csrc/clique_list.cu``): one call runs four device passes over the
+tiles' second-level branches (tile b, v, x) -- list them, count each
+one's rows, scan the counts into first ranks per tile in (v, x) order, and
+write each one's rows from its rank -- so the rows come out in the same
+order.
 
 :func:`clique_list_tiles` is the wrapper: a CUDA tensor goes to the
 kernel, a CPU tensor to the plain version :func:`clique_list_tiles_torch`.
@@ -28,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from .clique_count import item_list
 from .common import (MASK32, WORD, check_tiles, emit_edges, emit_frontier,
                      emit_triangles, gt_masks, member_rows, popcount_words,
                      unpack_bits, widen)
@@ -148,6 +153,8 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
 
     On a CUDA tensor the buffer is allocated with ``torch.empty``: the
     kernel writes every row, zeros past ``min(count, capacity)`` included.
+    ``launches`` counts one per call that reaches the card, though the call
+    runs four device passes.
     """
     global launches
     B, T, _ = check_tiles(A, cand)
@@ -160,12 +167,18 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
     cnt = torch.empty(B, dtype=torch.int32, device=A.device)
     ovf = torch.empty(B, dtype=torch.int32, device=A.device)
     if B:
+        # each item's count, then first rank, at [b, v, x]; the list of
+        # items; the list's length and the two passes' item counters
+        per_x = torch.zeros((B, T, T), dtype=torch.int64, device=A.device)
+        items = item_list(B, T, A.device)
+        counters = torch.zeros(3, dtype=torch.int32, device=A.device)
         so = _build.lib()
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = so.clique_list_tiles_launch(
                 A.data_ptr(), cand.data_ptr(), buf.data_ptr(), cnt.data_ptr(),
-                ovf.data_ptr(), B, T, l, capacity, stream)
+                ovf.data_ptr(), per_x.data_ptr(), items.data_ptr(),
+                counters.data_ptr(), B, T, l, capacity, stream)
         if rc:
             raise RuntimeError(f"clique_list_tiles launch failed: CUDA "
                                f"error {rc}")

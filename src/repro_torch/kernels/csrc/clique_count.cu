@@ -1,4 +1,4 @@
-// Per-tile l-clique count by an explicit-stack bitset DFS (k >= 6, l >= 4).
+// Per-tile l-clique count by a bitset DFS split into its second-level branches.
 //
 // Replaces: the Pallas kernel repro/kernels/clique_count.py,
 //   clique_count_tiles (_kernel): a cursor-stack DFS that pushes
@@ -10,142 +10,84 @@
 // Bound on the H100: the input is at most 8 KB a tile, but the work grows
 //   with the tile's clique structure: one W-word AND + popcount per DFS step
 //   and one per induced edge at every close.  It is bound by the integer
-//   issue rate and by branch divergence (tiles differ widely in DFS cost),
-//   not by HBM bytes.
-// Design: one warp per tile, 4 warps per CTA.  The warp stages the tile's A
-//   (<= 8 KB) and a todo stack of (l - 3) x W words in shared memory.  Lane w
-//   owns word w of every stack level, so taking the lowest set bit is one
-//   ballot + shuffle and the popcount of sub = after & A[v] one warp
-//   reduction; every lane holds the same depth, so control flow stays
-//   uniform.  A sub-branch with three levels left closes with a
-//   warp-cooperative triangles_within, lanes striding over its vertices.
-//   l <= 3 takes the closed forms inline; an empty cand returns 0 after one
-//   ballot.  l is a runtime argument up to kLMax (the wrapper checks it).
+//   issue rate, by the latency of each step's dependent chain and by
+//   divergence (tiles and branches differ widely in DFS cost), not by bytes.
+// Design (dfs_items.cuh), against the four limits of a warp per tile:
+//   - too few warps in flight: the work is split into items, the DFS's
+//     second-level branches (tile b, v, x), up to T * (T - 1) / 2 a tile,
+//     run by a persistent grid sized from the occupancy calculator and the
+//     SM count, so a 256-tile batch fills every SM with as many warps as fit;
+//   - idle lanes: a group of W = T/32 lanes runs one item, lane r owning
+//     word r of every stack level; at T = 32 each thread walks its own DFS
+//     with __ffs/__popc and no warp collective; the closes deal the set's
+//     vertices round robin over the group's lanes;
+//   - shared memory sized for the widest bin: only the todo stack lives in
+//     shared memory, (l - 5) words a thread, dynamic; A rows are read
+//     through the read-only path (a batch's A is at most 2 MB, inside L2);
+//   - the slowest tile sets the launch's time: a branch pass lists the
+//     items (first-level branches v-major, so the heavy low-v ones first)
+//     and groups take them from a global counter.  An item is a small
+//     share of its tile; first-level branches were not (measured on the
+//     H100: the heaviest branch of one T = 64 tile took 2.0 of a batch's
+//     2.4 ms).
+//   Items add into out[tile] with a uint32 atomicAdd: sums mod 2^32 are
+//   order-free, so the reference's wrap is kept exactly.  The wrapper zeroes
+//   out and the two counters.  l <= 3 rides on the same items (an item
+//   counts 1, or popcount(t) at l = 3).
 #include <cuda_runtime.h>
 
-#include "tile_bits.cuh"
+#include "dfs_items.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kWarps = 4;
 constexpr int kLMax = 16;
-constexpr int kStackLevels = kLMax - 3;  // depths 0 .. l-4
 
-__device__ __forceinline__ uint32_t warp_sum(uint32_t x) {
-  return __reduce_add_sync(kFullMask, x);
-}
-
-// Edges of the sub-induced subgraph, each pair once.  All lanes return it.
-__device__ uint32_t warp_edges(const uint32_t* A, const uint32_t* sub, int T, int W,
-                               int lane) {
-  uint32_t acc = 0;
-  for (int v = lane; v < T; v += 32) {
-    if (!has_bit(sub, v)) continue;
-    const uint32_t* av = A + v * W;
-    for (int w = v >> 5; w < W; ++w) acc += __popc(av[w] & sub[w] & gt_word(v, w));
+template <ItemOut kOut>
+int count_launch(const void* A, const void* cand, void* out, void* per, void* list,
+                 void* counters, int B, int T, int l, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  if (l < 1 || l > kLMax || B >= (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* a = static_cast<const uint32_t*>(A);
+  const auto* c = static_cast<const uint32_t*>(cand);
+  auto* li = static_cast<uint32_t*>(list);
+  auto* ctr = static_cast<unsigned*>(counters);
+  auto* o = static_cast<uint32_t*>(out);
+  auto* p = static_cast<unsigned long long*>(per);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (T) {
+    case 32: launch_items<1, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 64: launch_items<2, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 128: launch_items<4, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 256: launch_items<8, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return warp_sum(acc);
-}
-
-// Triangles of the sub-induced subgraph, each once: for every edge v < u of
-// it, popc(A[v] & A[u] & sub & gt(u)).  All lanes return it.
-__device__ uint32_t warp_triangles(const uint32_t* A, const uint32_t* sub, int T, int W,
-                                   int lane) {
-  uint32_t acc = 0;
-  for (int v = lane; v < T; v += 32) {
-    if (!has_bit(sub, v)) continue;
-    const uint32_t* av = A + v * W;
-    for (int wu = v >> 5; wu < W; ++wu) {
-      uint32_t nb = av[wu] & sub[wu] & gt_word(v, wu);
-      while (nb) {
-        const int u = (wu << 5) + __ffs(nb) - 1;
-        nb &= nb - 1u;
-        const uint32_t* au = A + u * W;
-        for (int w = wu; w < W; ++w) acc += __popc(av[w] & au[w] & sub[w] & gt_word(u, w));
-      }
-    }
-  }
-  return warp_sum(acc);
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-clique_count_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
-                    uint32_t* __restrict__ out, int B, int T, int l) {
-  __shared__ uint32_t sA[kWarps][kMaxT * kMaxW];
-  __shared__ uint32_t sStack[kWarps][kStackLevels * kMaxW];
-  __shared__ uint32_t sSub[kWarps][kMaxW];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tile = blockIdx.x * kWarps + warp;
-  if (tile >= B) return;  // the whole warp leaves together; no block barrier follows
-
-  const int W = T >> 5;
-  uint32_t* At = sA[warp];
-  uint32_t* stack = sStack[warp];
-  uint32_t* sub_s = sSub[warp];
-  const uint32_t* Ag = A + static_cast<size_t>(tile) * T * W;
-  for (int i = lane; i < T * W; i += 32) At[i] = Ag[i];
-  if (lane < W) stack[lane] = cand[static_cast<size_t>(tile) * W + lane];
-  __syncwarp();
-
-  uint32_t count = 0;
-  if (l == 1) {
-    count = warp_sum(lane < W ? __popc(stack[lane]) : 0u);
-  } else if (l == 2) {
-    count = warp_edges(At, stack, T, W, lane);
-  } else if (l == 3) {
-    count = warp_triangles(At, stack, T, W, lane);
-  } else {
-    int depth = 0;
-    while (depth >= 0) {
-      uint32_t* todo = stack + depth * W;
-      const uint32_t mine = lane < W ? todo[lane] : 0u;
-      const unsigned nonzero = __ballot_sync(kFullMask, mine != 0u);
-      if (nonzero == 0u) {  // frontier exhausted: pop
-        --depth;
-        continue;
-      }
-      const int wl = __ffs(nonzero) - 1;
-      const uint32_t word = __shfl_sync(kFullMask, mine, wl);
-      const int v = (wl << 5) + __ffs(word) - 1;
-      const uint32_t after = (lane == wl) ? (mine & (mine - 1u)) : mine;
-      if (lane < W) todo[lane] = after;
-      // sub = after & A[v]: cand & N(v) & gt(v), since after only holds
-      // vertices above v
-      const uint32_t s = lane < W ? (after & At[v * W + lane]) : 0u;
-      const int nsub = static_cast<int>(warp_sum(__popc(s)));
-      if (depth == l - 4) {  // sub has three levels left: close
-        if (nsub >= 3) {
-          if (lane < W) sub_s[lane] = s;
-          __syncwarp();
-          count += warp_triangles(At, sub_s, T, W, lane);
-          __syncwarp();
-        }
-      } else if (nsub >= l - depth - 1) {  // push
-        ++depth;
-        if (lane < W) stack[depth * W + lane] = s;
-      }
-      __syncwarp();
-    }
-  }
-  if (lane == 0) out[tile] = count;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// A: (B, T, T/32) words, cand: (B, T/32), out: (B,), all device pointers;
-// 1 <= l <= 16.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int clique_count_tiles_launch(const void* A, const void* cand, void* out, int B,
-                                         int T, int l, void* stream) {
-  using namespace repro_torch;
-  if (B > 0) {
-    const int blocks = (B + kWarps - 1) / kWarps;
-    clique_count_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(A), static_cast<const uint32_t*>(cand),
-        static_cast<uint32_t*>(out), B, T, l);
-  }
-  return static_cast<int>(cudaGetLastError());
+// A: (B, T, T/32) words, cand: (B, T/32), out: (B,) uint32, list: room for
+// B * T * (T + 1) / 2 uint32 items, counters: two uint32, all device
+// pointers, out and counters zeroed by the caller; 1 <= l <= 16, B < 2^16,
+// T in {32, 64, 128, 256}.  Launches the branch and item passes on `stream`
+// and returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
+// does not take).
+extern "C" int clique_count_tiles_launch(const void* A, const void* cand, void* out, void* list,
+                                         void* counters, int B, int T, int l, void* stream) {
+  using repro_torch::ItemOut;
+  return repro_torch::count_launch<ItemOut::kTile>(A, cand, out, nullptr, list, counters, B, T,
+                                                   l, stream);
+}
+
+// The count per first-level branch: per_v (B, T) uint64, zeroed by the
+// caller, gets at [b, v] the l-cliques of tile b whose lowest vertex is v.
+// Otherwise as above.
+extern "C" int clique_count_items_launch(const void* A, const void* cand, void* per_v,
+                                         void* list, void* counters, int B, int T, int l,
+                                         void* stream) {
+  using repro_torch::ItemOut;
+  return repro_torch::count_launch<ItemOut::kBranch>(A, cand, nullptr, per_v, list, counters, B,
+                                                     T, l, stream);
 }

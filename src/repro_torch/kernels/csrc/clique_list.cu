@@ -9,238 +9,313 @@
 //   form walked here) and its torch twin clique_list_tiles_torch in
 //   repro_torch/kernels/clique_list.py.
 // Contract: rows are local ids in lexicographic order -- the prefix in DFS
-//   order, then (u, w) in row-major order at an edge close, (v, u, w) in
-//   lexicographic order for l == 3, ascending v for l == 1.  count is the
+//   order, then (u, w) in row-major order at an edge close.  count is the
 //   true total (uint32, wrapping), only ranks < capacity are written,
 //   overflow = count > capacity, and the kernel zeroes every row at and past
 //   min(count, capacity), so the wrapper allocates the buffer uninitialised.
 // Bound on the H100: the input is at most 8 KB a tile; the output is
 //   min(count, capacity) * l * 4 bytes of rows (plus the zero fill), and the
 //   work is one W-word AND + popcount per DFS step plus one per candidate
-//   vertex (edge close) or induced edge (triangle close).  Tiles differ
-//   widely in DFS cost, so it is bound by integer instruction throughput,
-//   divergence and scattered row stores, not by HBM bandwidth.
-// Design: one warp per tile, 4 warps per CTA, A and the todo stack in shared
-//   memory as in clique_count.cu.  Ranks come from prefix sums, never from
-//   atomics: at a close, lanes take 32 consecutive first vertices u at a
-//   time, each counts the rows it completes, a warp exclusive scan
-//   (__shfl_up_sync) gives each lane its first rank, and each lane writes its
-//   rows in ascending order.  Rows go straight to global memory; staging them
-//   in shared memory is left for later.  l is a runtime argument up to
-//   kLMax (the wrapper checks it).
+//   vertex of every edge close.  It is bound by the latency of each DFS
+//   step's dependent chain, by divergence and by scattered row stores, not
+//   by HBM bandwidth.
+// Design: the work items of dfs_items.cuh, the DFS's second-level branches
+//   (tile b, v, x), in four device passes behind one wrapper call:
+//   1. branch: list the items (as clique_count.cu does);
+//   2. count: the item pass writes each item's exact 64-bit count into a
+//      dense (B, T, T) buffer at [b, v, x] (zero elsewhere);
+//   3. scan: one block per tile takes the exclusive prefix sum over its
+//      T * T entries in (v, x) order, in place, giving each item its first
+//      rank, the tile's count (low 32 bits) and overflow flag, and zeroes
+//      the rows at and past min(count, capacity);
+//   4. emit: every item with rows whose first rank is below capacity walks
+//      its branch again and writes its rows from that rank, stopping at
+//      capacity; items wholly past capacity are skipped.
+//   The DFS takes the lowest set bit first, so every row under (v, x)
+//   precedes every row under a later (v', x') and the item blocks in (v, x)
+//   order are exactly the per-tile DFS's buffer.  Inside an item, ranks
+//   come from prefix sums, never atomics: a close deals the set's vertices
+//   round robin over the group's W lanes, each lane counts the rows it
+//   completes, a group scan gives each lane its first rank, and each lane
+//   writes its rows ascending.  As in the count kernel, a group of
+//   W = T/32 lanes runs one item on a persistent grid, the todo stack and
+//   the branch prefix are the only shared memory (sized by l and W), and A
+//   is read through L1/L2.  Items that were first-level branches, as a
+//   first version of this design had, took 2.7x the warp-per-tile kernel's
+//   time on an overflowed k = 6 T = 64 batch: its first branches wrote most
+//   of each tile's 16,384 rows with W = 2 lanes.
 #include <cuda_runtime.h>
 
-#include "tile_bits.cuh"
+#include "dfs_items.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kWarps = 4;
 constexpr int kLMax = 16;
-constexpr int kStackLevels = kLMax - 2;  // depths 0 .. l-3
+constexpr int kScanThreads = 256;
 
-__device__ __forceinline__ uint32_t warp_sum(uint32_t x) {
-  return __reduce_add_sync(kFullMask, x);
-}
-
-__device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t x, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(kFullMask, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
-}
-
-// One tile's output rows and its running true count (uniform in the warp).
-struct Emit {
+// One tile's output rows.
+struct Rows {
   int* rows;  // (capacity, l) int32
   int capacity;
   int l;
-  unsigned long long total;
 };
 
-// Row `dest` = prefix[0..npfx) followed by the ncoord coordinates c.
-__device__ __forceinline__ void put_row(const Emit& e, unsigned long long dest,
-                                        const int* prefix, int npfx, int c0, int c1,
-                                        int c2) {
-  if (dest >= static_cast<unsigned long long>(e.capacity)) return;
-  int* row = e.rows + dest * e.l;
-  for (int j = 0; j < npfx; ++j) row[j] = prefix[j];
-  const int c[3] = {c0, c1, c2};
-  for (int j = npfx; j < e.l; ++j) row[j] = c[j - npfx];
+// Row `dest` = the npfx prefix vertices (pf[j * pstride]) followed by the
+// l - npfx coordinates c0, c1.
+__device__ __forceinline__ void put_row(const Rows& out, unsigned long long dest, const int* pf,
+                                        int pstride, int npfx, int c0, int c1) {
+  if (dest >= static_cast<unsigned long long>(out.capacity)) return;
+  int* row = out.rows + dest * out.l;
+  for (int j = 0; j < npfx; ++j) row[j] = pf[j * pstride];
+  if (npfx < out.l) row[npfx] = c0;
+  if (npfx + 1 < out.l) row[npfx + 1] = c1;
 }
 
-// l' == 1 close: every vertex of `set`, ascending.
-__device__ void emit_frontier(Emit& e, const uint32_t* set, int T, int lane) {
-  for (int vb = 0; vb < T; vb += 32) {
-    const bool in = (set[vb >> 5] >> lane) & 1u;
-    const unsigned ballot = __ballot_sync(kFullMask, in);
-    if (in) {
-      const int rank = __popc(ballot & ((1u << lane) - 1u));
-      put_row(e, e.total + rank, nullptr, 0, vb + lane, 0, 0);
-    }
-    e.total += __popc(ballot);
-  }
-}
-
-// l' == 2 close: every edge (u, w), u < w, of the sub-induced subgraph behind
-// prefix[0..l-2), in row-major order.  Lane i takes u = ub + i.
-__device__ void emit_edges(Emit& e, const uint32_t* A, const uint32_t* sub,
-                           const int* prefix, int T, int W, int lane) {
-  const int npfx = e.l - 2;
-  for (int ub = 0; ub < T; ub += 32) {
-    if (sub[ub >> 5] == 0u) continue;  // sub is in shared memory: uniform
-    const int u = ub + lane;
-    const uint32_t* au = A + u * W;
+// Two levels left: every edge (u, w), u < w, of the sub-induced subgraph
+// behind the l - 2 prefix vertices, in row-major order, from rank `total`.
+// Returns the rank after its rows (or a rank >= capacity once it is full).
+template <int W>
+__device__ __forceinline__ unsigned long long emit_edges(
+    const Group<W>& g, const uint32_t* __restrict__ At, const uint32_t (&sub)[W], int nsub,
+    const int* pf, int pstride, const Rows& out, unsigned long long total) {
+  const unsigned long long cap = static_cast<unsigned long long>(out.capacity);
+  Stride<W> it(sub, g.r);
+  for (int done = 0; done < nsub && total < cap; done += W) {
+    const int u = it.next();  // lane r: the sub's vertex of rank done + r
+    uint32_t nb[W];
     uint32_t c = 0;
-    const bool in = (sub[ub >> 5] >> lane) & 1u;
-    if (in)
-      for (int w = ub >> 5; w < W; ++w) c += __popc(au[w] & sub[w] & gt_word(u, w));
-    const uint32_t incl = warp_inclusive_scan(c, lane);
-    const uint32_t chunk = __shfl_sync(kFullMask, incl, 31);
-    if (c && e.total < static_cast<unsigned long long>(e.capacity)) {
-      unsigned long long dest = e.total + (incl - c);
-      for (int w = ub >> 5; w < W; ++w) {
-        uint32_t nb = au[w] & sub[w] & gt_word(u, w);
-        while (nb) {
-          put_row(e, dest++, prefix, npfx, u, (w << 5) + __ffs(nb) - 1, 0);
-          nb &= nb - 1u;
-        }
+    if (u >= 0) {
+      load_row<W>(At + u * W, nb);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        nb[w] &= sub[w] & gt_word(u, w);
+        c += __popc(nb[w]);
       }
     }
-    e.total += chunk;
+    const uint32_t incl = g.inclusive_scan(c);
+    if (c) {
+      unsigned long long dest = total + (incl - c);
+      for (int w2 = take_lowest<W>(nb); w2 >= 0 && dest < cap; w2 = take_lowest<W>(nb))
+        put_row(out, dest++, pf, pstride, out.l - 2, u, w2);
+    }
+    total += g.shfl(incl, W - 1);
+  }
+  return total;
+}
+
+// Writes the rows of an item from rank `first` until they end or reach
+// capacity: the p prefix vertices pf[0 .. p) followed by each k-clique of
+// the set t (this lane's word; nt its popcount), p + k = l, in the per-tile
+// DFS's order.  `stack`: this lane's slot of the level-major todo stack
+// (k - 2 levels, `stride` words apart); `pf`: the group's prefix
+// (max(l - 2, 2) entries, `pstride` apart), whose first p entries the
+// caller wrote.
+template <int W>
+__device__ __forceinline__ void emit_cliques(const Group<W>& g, const uint32_t* __restrict__ At,
+                                             uint32_t t, int nt, int k, const Rows& out,
+                                             unsigned long long first, uint32_t* stack,
+                                             int stride, int* pf, int pstride) {
+  const unsigned long long cap = static_cast<unsigned long long>(out.capacity);
+  if (k == 0) {  // the prefix alone
+    if (g.r == 0) put_row(out, first, pf, pstride, out.l, 0, 0);
+    return;
+  }
+  if (k == 1) {  // the prefix and each vertex of t, ascending
+    const uint32_t c = __popc(t);
+    unsigned long long dest = first + (g.inclusive_scan(c) - c);
+    for (; t && dest < cap; t &= t - 1u)
+      put_row(out, dest++, pf, pstride, out.l - 1, (g.r << 5) + __ffs(t) - 1, 0);
+    return;
+  }
+  if (k == 2) {  // the prefix and each edge of t
+    uint32_t sub[W];
+    g.gather(t, sub);
+    emit_edges<W>(g, At, sub, nt, pf, pstride, out, first);
+    return;
+  }
+  const int p = out.l - k;
+  unsigned long long total = first;
+  int depth = 0;
+  stack[0] = t;
+  while (depth >= 0 && total < cap) {
+    uint32_t* todo = stack + depth * stride;
+    const uint32_t mine = *todo;
+    const unsigned nonzero = g.ballot(mine != 0u);
+    if (nonzero == 0u) {  // frontier exhausted: pop
+      --depth;
+      continue;
+    }
+    const int wl = __ffs(nonzero) - 1;
+    const uint32_t word = g.shfl(mine, wl);
+    const int y = (wl << 5) + __ffs(word) - 1;
+    const uint32_t after = g.r == wl ? (mine & (mine - 1u)) : mine;
+    *todo = after;
+    const uint32_t u = after & __ldg(At + y * W + g.r);
+    const int nu = static_cast<int>(g.sum(__popc(u)));
+    if (depth == k - 3) {  // two levels left: emit the edges of u
+      if (nu >= 2) {
+        if (g.r == 0) pf[(p + depth) * pstride] = y;
+        g.sync();
+        uint32_t sub[W];
+        g.gather(u, sub);
+        total = emit_edges<W>(g, At, sub, nu, pf, pstride, out, total);
+        g.sync();  // every lane has read the prefix before it changes
+      }
+    } else if (nu >= k - depth - 1) {  // push
+      if (g.r == 0) pf[(p + depth) * pstride] = y;
+      ++depth;
+      stack[depth * stride] = u;
+    }
   }
 }
 
-// l == 3: every triangle (v, u, w), v < u < w, of the cand-induced subgraph,
-// in lexicographic order.  v walks ascending (uniform); lane i takes u = ub + i.
-__device__ void emit_triangles(Emit& e, const uint32_t* A, const uint32_t* cand, int T,
-                               int W, int lane) {
-  for (int v = 0; v < T; ++v) {
-    if (!has_bit(cand, v)) continue;
-    const uint32_t* av = A + v * W;
-    for (int ub = v & ~31; ub < T; ub += 32) {
-      const int wu = ub >> 5;
-      const uint32_t nbv = av[wu] & cand[wu] & gt_word(v, wu);  // u: v < u, edge
-      if (nbv == 0u) continue;
-      const int u = ub + lane;
-      const uint32_t* au = A + u * W;
-      uint32_t c = 0;
-      const bool in = (nbv >> lane) & 1u;
-      if (in)
-        for (int w = wu; w < W; ++w) c += __popc(av[w] & au[w] & cand[w] & gt_word(u, w));
-      const uint32_t incl = warp_inclusive_scan(c, lane);
-      const uint32_t chunk = __shfl_sync(kFullMask, incl, 31);
-      if (c && e.total < static_cast<unsigned long long>(e.capacity)) {
-        unsigned long long dest = e.total + (incl - c);
-        for (int w = wu; w < W; ++w) {
-          uint32_t nb = av[w] & au[w] & cand[w] & gt_word(u, w);
-          while (nb) {
-            put_row(e, dest++, nullptr, 0, v, u, (w << 5) + __ffs(nb) - 1);
-            nb &= nb - 1u;
-          }
-        }
-      }
-      e.total += chunk;
+// The emit pass: every listed item with rows below capacity writes them.
+template <int W>
+__global__ void __launch_bounds__(kItemThreads, kItemMinBlocks)
+list_emit_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
+                 const uint32_t* __restrict__ list, const unsigned* __restrict__ n_list,
+                 unsigned* __restrict__ counter, const unsigned long long* __restrict__ firsts,
+                 int* __restrict__ rows, int l, int capacity) {
+  extern __shared__ uint32_t list_smem[];
+  constexpr int T = W * 32;
+  const Group<W> g;
+  const int levels = l > 4 ? l - 4 : 1;
+  uint32_t* stack = list_smem + threadIdx.x;  // level-major: no bank conflicts
+  const int groups = kItemThreads / W;
+  int* pf = reinterpret_cast<int*>(list_smem + levels * kItemThreads) + threadIdx.x / W;
+  const unsigned n = *n_list;
+  for (unsigned i = next_item(g, counter); i < n; i = next_item(g, counter)) {
+    const uint32_t item = list[i];
+    const int b = static_cast<int>(item >> 16);
+    const int v = static_cast<int>((item >> 8) & 0xFFu);
+    const int x = static_cast<int>(item & 0xFFu);
+    const size_t at = (static_cast<size_t>(b) * T + v) * T + x;
+    const unsigned long long first = firsts[at];
+    // l <= 2: one row; else the next entry of the tile's scan (x > v, so
+    // (v, x) is never the tile's last entry)
+    const unsigned long long count = l <= 2 ? 1ull : firsts[at + 1] - first;
+    if (count == 0ull || first >= static_cast<unsigned long long>(capacity)) continue;
+    const uint32_t* At = A + static_cast<size_t>(b) * T * W;
+    const Rows out{rows + static_cast<size_t>(b) * capacity * l, capacity, l};
+    if (g.r == 0) {
+      pf[0] = v;
+      if (l >= 2) pf[groups] = x;
     }
+    g.sync();
+    if (l <= 2) {
+      emit_cliques<W>(g, At, 0u, 0, 0, out, first, stack, kItemThreads, pf, groups);
+    } else {
+      int nt;
+      const uint32_t t = second_branch(g, At, cand + static_cast<size_t>(b) * W, v, x, &nt);
+      emit_cliques<W>(g, At, t, nt, l - 2, out, first, stack, kItemThreads, pf, groups);
+    }
+    g.sync();  // the prefix is read before the next item writes it
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-clique_list_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
-                   int* __restrict__ out, uint32_t* __restrict__ out_count,
-                   uint32_t* __restrict__ out_overflow, int B, int T, int l, int capacity) {
-  __shared__ uint32_t sA[kWarps][kMaxT * kMaxW];
-  __shared__ uint32_t sStack[kWarps][kStackLevels * kMaxW];
-  __shared__ uint32_t sSub[kWarps][kMaxW];
-  __shared__ int sPrefix[kWarps][kLMax];
-
-  const int warp = threadIdx.x >> 5;
+// One block per tile: the exclusive prefix sum of its T * T item counts in
+// place (first ranks), the tile's count and flag, and the zero fill.
+__global__ void __launch_bounds__(kScanThreads)
+list_scan_kernel(unsigned long long* __restrict__ per_x, int* __restrict__ rows,
+                 uint32_t* __restrict__ out_count, uint32_t* __restrict__ out_overflow, int T,
+                 int l, int capacity) {
+  __shared__ unsigned long long s_warp[kScanThreads / 32];
+  const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
-  const int tile = blockIdx.x * kWarps + warp;
-  if (tile >= B) return;  // the whole warp leaves together; no block barrier follows
-
-  const int W = T >> 5;
-  uint32_t* At = sA[warp];
-  uint32_t* stack = sStack[warp];
-  uint32_t* sub_s = sSub[warp];
-  int* prefix = sPrefix[warp];
-  const uint32_t* Ag = A + static_cast<size_t>(tile) * T * W;
-  for (int i = lane; i < T * W; i += 32) At[i] = Ag[i];
-  if (lane < W) stack[lane] = cand[static_cast<size_t>(tile) * W + lane];
-  __syncwarp();
-
-  Emit e{out + static_cast<size_t>(tile) * capacity * l, capacity, l, 0ull};
-  if (l == 1) {
-    emit_frontier(e, stack, T, lane);
-  } else if (l == 2) {
-    emit_edges(e, At, stack, prefix, T, W, lane);
-  } else if (l == 3) {
-    emit_triangles(e, At, stack, T, W, lane);
-  } else {
-    int depth = 0;
-    while (depth >= 0) {
-      uint32_t* todo = stack + depth * W;
-      const uint32_t mine = lane < W ? todo[lane] : 0u;
-      const unsigned nonzero = __ballot_sync(kFullMask, mine != 0u);
-      if (nonzero == 0u) {  // frontier exhausted: pop
-        --depth;
-        continue;
-      }
-      const int wl = __ffs(nonzero) - 1;
-      const uint32_t word = __shfl_sync(kFullMask, mine, wl);
-      const int v = (wl << 5) + __ffs(word) - 1;
-      const uint32_t after = (lane == wl) ? (mine & (mine - 1u)) : mine;
-      if (lane < W) todo[lane] = after;
-      // sub = after & A[v]: cand & N(v) & gt(v), since after only holds
-      // vertices above v
-      const uint32_t s = lane < W ? (after & At[v * W + lane]) : 0u;
-      const int nsub = static_cast<int>(warp_sum(__popc(s)));
-      if (depth == l - 3) {  // sub has two levels left: emit its edges
-        if (nsub >= 2) {
-          if (lane < W) sub_s[lane] = s;
-          if (lane == 0) prefix[depth] = v;
-          __syncwarp();
-          emit_edges(e, At, sub_s, prefix, T, W, lane);
-        }
-      } else if (nsub >= l - depth - 1) {  // push
-        if (lane == 0) prefix[depth] = v;
-        ++depth;
-        if (lane < W) stack[depth * W + lane] = s;
-      }
-      __syncwarp();
-    }
+  const int warp = threadIdx.x >> 5;
+  const int per = T * T / kScanThreads;  // entries a thread sums, in order
+  unsigned long long* mine = per_x + static_cast<size_t>(b) * T * T + threadIdx.x * per;
+  unsigned long long sum = 0;
+  for (int i = 0; i < per; ++i) sum += mine[i];
+  unsigned long long incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long y = __shfl_up_sync(kFullMask, incl, o);
+    if (lane >= o) incl += y;
   }
-
-  // zero every row at and past min(count, capacity)
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  unsigned long long before = 0, total = 0;
+  for (int w = 0; w < kScanThreads / 32; ++w) {
+    if (w < warp) before += s_warp[w];
+    total += s_warp[w];
+  }
+  unsigned long long run = before + incl - sum;
+  for (int i = 0; i < per; ++i) {
+    const unsigned long long c = mine[i];
+    mine[i] = run;
+    run += c;
+  }
+  if (threadIdx.x == 0) {
+    const uint32_t count = static_cast<uint32_t>(total);  // wraps as the reference
+    out_count[b] = count;
+    out_overflow[b] = count > static_cast<uint32_t>(capacity) ? 1u : 0u;
+  }
+  // zero every row at and past min(count, capacity), 16 bytes a store where
+  // the address allows it
   const unsigned long long cap = static_cast<unsigned long long>(capacity);
-  const size_t written = static_cast<size_t>(e.total < cap ? e.total : cap);
-  for (size_t i = written * l + lane; i < static_cast<size_t>(capacity) * l; i += 32)
-    e.rows[i] = 0;
-  if (lane == 0) {
-    const uint32_t count = static_cast<uint32_t>(e.total);  // wraps as the reference
-    out_count[tile] = count;
-    out_overflow[tile] = count > static_cast<uint32_t>(capacity) ? 1u : 0u;
-  }
+  const size_t written = static_cast<size_t>(total < cap ? total : cap);
+  int* lo = rows + static_cast<size_t>(b) * capacity * l + written * l;
+  int* hi = rows + static_cast<size_t>(b + 1) * capacity * l;
+  int* lo4 = reinterpret_cast<int*>((reinterpret_cast<uintptr_t>(lo) + 15) & ~uintptr_t{15});
+  int* hi4 = reinterpret_cast<int*>(reinterpret_cast<uintptr_t>(hi) & ~uintptr_t{15});
+  if (lo4 > hi4) lo4 = hi4 = hi;
+  for (int* q = lo + threadIdx.x; q < lo4; q += blockDim.x) *q = 0;
+  for (int4* q = reinterpret_cast<int4*>(lo4) + threadIdx.x; q < reinterpret_cast<int4*>(hi4);
+       q += blockDim.x)
+    *q = make_int4(0, 0, 0, 0);
+  for (int* q = hi4 + threadIdx.x; q < hi; q += blockDim.x) *q = 0;
+}
+
+template <int W>
+void launch_list(const uint32_t* A, const uint32_t* cand, int* rows, uint32_t* count,
+                 uint32_t* overflow, unsigned long long* per_x, uint32_t* list,
+                 unsigned* counters, int B, int l, int capacity, cudaStream_t stream) {
+  launch_items<W, ItemOut::kItem>(A, cand, list, counters, nullptr, per_x, B, l, stream);
+  list_scan_kernel<<<B, kScanThreads, 0, stream>>>(per_x, rows, count, overflow, W * 32, l,
+                                                   capacity);
+  auto emit = list_emit_kernel<W>;
+  const int smem =
+      ((l > 4 ? l - 4 : 1) * kItemThreads + (l > 4 ? l - 2 : 2) * (kItemThreads / W)) *
+      static_cast<int>(sizeof(uint32_t));
+  emit<<<persistent_grid(emit, smem), kItemThreads, smem, stream>>>(
+      A, cand, list, counters, counters + 2, per_x, rows, l, capacity);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B, capacity, l) int32,
-// count and overflow: (B,) uint32, all device pointers; 1 <= l <= 16,
-// capacity >= 1.  Launches on `stream` and returns cudaGetLastError().
+// count and overflow: (B,) uint32, per_x: B * T * T uint64 and counters:
+// three uint32, both zeroed by the caller, list: room for B * T * (T + 1) / 2
+// uint32 items, all device pointers; 1 <= l <= 16, capacity >= 1,
+// B < 2^16, T in {32, 64, 128, 256}.  Launches four kernels on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
+// does not take).
 extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* out,
-                                        void* count, void* overflow, int B, int T, int l,
-                                        int capacity, void* stream) {
+                                        void* count, void* overflow, void* per_x, void* list,
+                                        void* counters, int B, int T, int l, int capacity,
+                                        void* stream) {
   using namespace repro_torch;
-  if (B > 0) {
-    const int blocks = (B + kWarps - 1) / kWarps;
-    clique_list_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(A), static_cast<const uint32_t*>(cand),
-        static_cast<int*>(out), static_cast<uint32_t*>(count),
-        static_cast<uint32_t*>(overflow), B, T, l, capacity);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  if (l < 1 || l > kLMax || capacity < 1 || B >= (1 << 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* a = static_cast<const uint32_t*>(A);
+  const auto* c = static_cast<const uint32_t*>(cand);
+  auto* o = static_cast<int*>(out);
+  auto* n = static_cast<uint32_t*>(count);
+  auto* f = static_cast<uint32_t*>(overflow);
+  auto* px = static_cast<unsigned long long*>(per_x);
+  auto* li = static_cast<uint32_t*>(list);
+  auto* ctr = static_cast<unsigned*>(counters);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (T) {
+    case 32: launch_list<1>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 64: launch_list<2>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 128: launch_list<4>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 256: launch_list<8>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

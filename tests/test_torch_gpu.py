@@ -61,6 +61,8 @@ def test_kernels_match_plain_on_card(cuda, T):
         got = clique_count.clique_count_tiles(A, cand, l)
         assert torch.equal(got,
                            clique_count.clique_count_tiles_torch(A, cand, l))
+        assert torch.equal(clique_count.clique_count_items(A, cand, l),
+                           clique_count.clique_count_items_torch(A, cand, l))
     after = ops.launch_counts()
     assert after["triangle_count_tiles"] == before["triangle_count_tiles"] + 1
     assert after["clique_count_tiles"] == before["clique_count_tiles"] + 6
@@ -171,3 +173,80 @@ def test_list_cliques_on_card_matches_cpu_and_host(cuda, k):
     small, st = ebbkc.list_cliques(g, k, device=cuda,
                                    engine_kwargs=dict(capacity=2))
     assert np.array_equal(small, got) and st.overflowed_tiles > 0
+
+
+def _assert_dfs_kernels_match(A, cand, l, caps=()):
+    """Count kernel, item pass and list kernel (at each capacity) against
+    their plain versions, exactly."""
+    want = clique_count.clique_count_tiles_torch(A, cand, l)
+    assert torch.equal(clique_count.clique_count_tiles(A, cand, l), want)
+    items = clique_count.clique_count_items(A, cand, l)
+    assert torch.equal(items, clique_count.clique_count_items_torch(A, cand,
+                                                                    l))
+    assert torch.equal(items.sum(-1) & 0xFFFFFFFF, want)
+    for cap in caps:
+        got = clique_list.clique_list_tiles(A, cand, l, cap)
+        ref = clique_list.clique_list_tiles_torch(A, cand, l, cap)
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y), (A.shape, l, cap)
+    return want, items
+
+
+@pytest.mark.parametrize("T", BINS)
+def test_one_dense_tile_among_empty_ones(cuda, T):
+    A, cand = (x.to(cuda) for x in cliquey_tiles(T + 3, 4, T, s_max=20,
+                                                p=0.8))
+    heavy = int(clique_count.clique_count_tiles_torch(A, cand, 4).argmax())
+    A2 = torch.zeros((256, T, T // 32), dtype=torch.int32, device=cuda)
+    c2 = torch.zeros((256, T // 32), dtype=torch.int32, device=cuda)
+    A2[200], c2[200] = A[heavy], cand[heavy]
+    want, _ = _assert_dfs_kernels_match(A2, c2, 4, caps=(1, 7, 50_000))
+    assert int(want[200]) > 0 and int(want.sum()) == int(want[200])
+
+
+@pytest.mark.parametrize("T", BINS)
+def test_every_cand_zero(cuda, T):
+    A, cand = (x.to(cuda) for x in cliquey_tiles(T, 33, T))
+    zero = torch.zeros_like(cand)
+    for l in (1, 4, 6):
+        want, items = _assert_dfs_kernels_match(A, zero, l, caps=(1, 3))
+        assert not want.any() and not items.any()
+
+
+@pytest.mark.parametrize("B", [1, 5, 257, 1024])
+@pytest.mark.parametrize("T", BINS)
+def test_batch_sizes_across_the_persistent_grid(cuda, B, T):
+    A, cand = (x[:B].to(cuda) for x in random_tiles(B + T, max(B, 2), T,
+                                                    _DENSITY[T]))
+    want = clique_count.clique_count_tiles_torch(A, cand, 5)
+    cap = listing.capacity_for(want.cpu().numpy())
+    _assert_dfs_kernels_match(A, cand, 5, caps=(cap,))
+
+
+@pytest.mark.parametrize("l", [6, 7, 8])
+def test_deep_cliques_on_dense_wide_tiles(cuda, l):
+    A, cand = (x.to(cuda) for x in cliquey_tiles(l, 12, 256, s_max=24,
+                                                p=0.85))
+    want = clique_count.clique_count_tiles_torch(A, cand, l)
+    assert int(want.max()) > 1000
+    _assert_dfs_kernels_match(A, cand, l,
+                              caps=(listing.capacity_for(
+                                  want.cpu().numpy()),))
+
+
+@pytest.mark.parametrize("T", BINS)
+def test_list_capacity_cuts_inside_item_blocks(cuda, T):
+    A, cand = (x.to(cuda) for x in cliquey_tiles(7 * T, 16, T, s_max=20,
+                                                p=0.8))
+    items = clique_count.clique_count_items_torch(A, cand, 5)
+    nz = items[items > 0]
+    first = items[torch.arange(items.shape[0]), (items > 0).int().argmax(-1)]
+    # a capacity below the first item's count, one that ends inside the
+    # second item's block, and 1
+    b = int(first.argmax())
+    row = items[b][items[b] > 0]
+    caps = {1, max(1, int(first.max()) - 1)}
+    if row.numel() > 1:
+        caps.add(int(row[0]) + max(1, int(row[1]) // 2))
+    assert nz.numel() > 0
+    _assert_dfs_kernels_match(A, cand, 5, caps=sorted(caps))
