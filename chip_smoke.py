@@ -23,11 +23,21 @@ kernel counters set to 0 just before it and read just after:
 and finally runs the command-line launcher with ``--verify``, counting
 and listing.  Any failure raises and exits non-zero.
 
+Kernel times: ``device_ms`` is the device time of one call, from 100
+calls of the bare C entry point (with the wrapper's zero fills) captured in
+one CUDA graph and replayed between two CUDA events, so the host is out of
+it; ``call_ms`` is one call timed by two events, which is what a caller
+waits, host dispatch included; ``launch_floor_ms`` is the device time of
+zeroing a one-element tensor, measured the same way: the least a launch
+takes.  The triangle kernel is also timed, on every case, in the first
+port's design, which its C entry point keeps as the baseline.
+
 Output: the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` JSON line with each kernel's launches on the main
-path, its largest difference from the plain version, its time, the plain
-version's time, its lower bound and the library yardstick's time, and as
-the last line ``{"ok": true, "device": {...}}``.  ``--json PATH`` also
+path, its largest difference from the plain version, its times (``ms`` is
+``device_ms``), the plain version's time, its lower bound and the library
+yardstick's device time, and as the last line ``{"ok": true, "device":
+{...}}``.  ``--json PATH`` also
 writes every number to PATH.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
 prints no result.
@@ -86,6 +96,9 @@ INT32_OPS_PER_S = 16.75e12
 
 BINS = (32, 64, 128, 256)
 
+# launches captured in one CUDA graph by device_ms
+GRAPH_CALLS = 100
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -102,9 +115,10 @@ def gpu_header() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timings, after
-    one warm-up call."""
+def call_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timings of one
+    call each, after one warm-up call: what a caller waits for one call,
+    the host's time to reach the launch included."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -118,6 +132,73 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = GRAPH_CALLS, reps: int = 5) -> float:
+    """Device milliseconds of one call of ``fn``: ``n`` calls captured once
+    in a CUDA graph and replayed between two CUDA events, the elapsed time
+    over ``n``; the median of ``reps`` replays after a warm-up replay.  The
+    host is out of the timing.  ``fn`` launches on the stream that is
+    current when it is called and does not synchronise."""
+    import torch
+    side = torch.cuda.Stream()  # warm up on the capture stream, as the
+    side.wait_stream(torch.cuda.current_stream())  # graph docs advise
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    graph.reset()
+    return statistics.median(times)
+
+
+_FLOOR = {}
+
+
+def launch_floor_ms() -> float:
+    """The launch floor: :func:`device_ms` of zeroing a one-element tensor,
+    the least device time a launch takes.  Measured once a run."""
+    import torch
+    if "ms" not in _FLOOR:
+        one = torch.zeros(1, device="cuda")
+        _FLOOR["ms"] = device_ms(one.zero_)
+    return _FLOOR["ms"]
+
+
+def load_floor_ms() -> float:
+    """The load floor: :func:`device_ms` of copying one element from one
+    tensor to another, the least a launch takes whose store waits on a
+    load from device memory.  Measured once a run."""
+    import torch
+    if "load_ms" not in _FLOOR:
+        src, dst = torch.zeros(2, 1, device="cuda")
+        _FLOOR["load_ms"] = device_ms(lambda: dst.copy_(src))
+    return _FLOOR["load_ms"]
+
+
+def stream_ptr() -> int:
+    """The current CUDA stream's handle (the capture stream inside a CUDA
+    graph capture)."""
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_rc(rc: int, name: str) -> None:
+    if rc:
+        fail(f"{name} launch failed: CUDA error {rc}")
 
 
 def timed_once(fn):
@@ -211,11 +292,20 @@ def bound(nbytes: int, word_ops: int):
                                    else "operations")
 
 
+def timings(launch, reps: int) -> dict:
+    """The three times of a row: ``device_ms`` (CUDA graph, host out),
+    ``call_ms`` (one call, host dispatch in) and the run's launch floor;
+    ``ms`` is the device time."""
+    dev = device_ms(launch)
+    return {"ms": dev, "device_ms": dev, "call_ms": call_ms(launch, reps),
+            "launch_floor_ms": launch_floor_ms()}
+
+
 def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
     """Kernel vs plain on one input; record timings and the bound.
 
-    The kernel's time is the median of ``reps`` launches of the bare C
-    entry point (no wrapper, so no launch counted); the plain version's
+    The kernel's times are those of the bare C entry point (no wrapper, so
+    no launch counted) with the wrapper's zero fills; the plain version's
     is its one comparison run, since it repeats the kernel's arithmetic
     step by step and is no yardstick of speed."""
     import torch
@@ -226,24 +316,48 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
     so = _build.lib()
     out = torch.empty(B + 2, dtype=torch.int32, device=A.device)
     items = clique_count.item_list(B, T, A.device)
-    stream = torch.cuda.current_stream().cuda_stream
     nbytes = A.numel() * 4 + cand.numel() * 4 + B * 4
     results = []
     for kernel in (("triangle", "dfs") if l == 3 else ("dfs",)):
+        extra = {}
         if kernel == "triangle":
             got = triangle_mm.triangle_count_tiles(A, cand)
             want, plain_ms = timed_once(
                 lambda: triangle_mm.triangle_count_tiles_torch(A, cand))
 
-            def launch():
-                so.triangle_count_tiles_launch(A.data_ptr(), cand.data_ptr(),
-                                               out.data_ptr(), B, T, stream)
+            out64 = torch.empty(B, dtype=torch.int64, device=A.device)
+
+            def design_launch(design):
+                def launch():
+                    check_rc(so.triangle_count_tiles_launch(
+                        A.data_ptr(), cand.data_ptr(), out64.data_ptr(), B,
+                        T, design, stream_ptr()), "triangle_count_tiles")
+                return launch
+            launch = design_launch(triangle_mm.BIN_DESIGN)
+            # the first port's design and the new one of this bin, each
+            # held against the plain version and timed the same way (the
+            # row's own time is the bin's design)
+            extra["design_device_ms"] = {}
+            for name, design in (
+                    ("thread_rows", triangle_mm.THREAD_ROWS),
+                    ("warp_rows", triangle_mm.WARP_ROWS) if T <= 64 else
+                    ("block_rows", triangle_mm.BLOCK_ROWS)):
+                out64.fill_(-1)
+                design_launch(design)()
+                if not torch.equal(out64, want):
+                    fail(f"triangle design {name} != plain at T={T} ({tag})")
+                extra["design_device_ms"][name] = device_ms(
+                    design_launch(design))
             # 3 word ops (AND, popcount, add) per word of every induced edge
             word_ops = 3 * W * int(edges_within_ref(A, cand).sum())
             lib_fn, lib_counts = bmm_yardstick(A, cand)
             if not torch.equal(lib_counts, want):
                 fail(f"bmm yardstick disagrees at T={T} ({tag})")
-            lib_ms = time_ms(lib_fn, reps)
+            lib_ms = device_ms(lib_fn)
+            # the wrapper as the engine calls it: its launch and any torch
+            # op that follows it
+            extra["wrapper_device_ms"] = device_ms(
+                lambda: triangle_mm.triangle_count_tiles(A, cand))
         else:
             got = clique_count.clique_count_tiles(A, cand, l)
             work = {}
@@ -255,10 +369,10 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
                 # the wrapper's work: zero the counts and the two item
                 # counters (out[B:]), then the branch and item passes
                 out.zero_()
-                so.clique_count_tiles_launch(A.data_ptr(), cand.data_ptr(),
-                                             out.data_ptr(), items.data_ptr(),
-                                             out[B:].data_ptr(), B, T, l,
-                                             stream)
+                check_rc(so.clique_count_tiles_launch(
+                    A.data_ptr(), cand.data_ptr(), out.data_ptr(),
+                    items.data_ptr(), out[B:].data_ptr(), B, T, l,
+                    stream_ptr()), "clique_count_tiles")
             # 2 word ops (AND, popcount) per word of every DFS step, and
             # 4 (two ANDs, popcount, add) per word of every closing edge
             word_ops = 2 * W * int(work["steps"].sum()) + \
@@ -274,20 +388,24 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
             item_case(rows, errs, A, cand, l, tag, want, reps)
         # times are taken with the batch resident in L2, as the engine finds
         # it right after its H2D copy
-        ms = time_ms(launch, reps)
+        t = timings(launch, reps)
         bound_ms, bound_by = bound(nbytes, word_ops)
-        row = {"kernel": kernel, "case": tag, "T": T, "l": l, "B": B,
-               "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+        row = {"kernel": kernel, "case": tag, "T": T, "l": l, "B": B, **t,
+               "plain_ms": plain_ms, "bytes": nbytes,
                "word_ops": word_ops, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms,
-               "tiles_per_s": B / (ms / 1e3)}
+               "bound_by": bound_by, "library_ms": lib_ms, **extra,
+               "tiles_per_s": B / (t["ms"] / 1e3)}
         rows.append(row)
         results.append(row)
-        log(f"  {kernel:8s} {tag:17s} T={T:3d} l={l} B={B:3d}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}: "
-            f"{nbytes} B, {word_ops} word-ops)"
-            + (f", bmm {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        log(f"  {kernel:8s} {tag:17s} T={T:3d} l={l} B={B:3d}: device "
+            f"{t['device_ms']:.5f} ms, call {t['call_ms']:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}: {nbytes} B, {word_ops} word-ops)"
+            + (f", bmm device {lib_ms:.5f} ms, wrapper device "
+               f"{extra['wrapper_device_ms']:.5f} ms, designs " + ", ".join(
+                   f"{n} {v:.5f}" for n, v in
+                   extra["design_device_ms"].items())
+               if lib_ms is not None else ""))
     return results
 
 
@@ -316,25 +434,25 @@ def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20):
     per_v = torch.empty((B, T), dtype=torch.int64, device=A.device)
     items = clique_count.item_list(B, T, A.device)
     counters = torch.empty(2, dtype=torch.int32, device=A.device)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         per_v.zero_()
         counters.zero_()
-        so.clique_count_items_launch(A.data_ptr(), cand.data_ptr(),
-                                     per_v.data_ptr(), items.data_ptr(),
-                                     counters.data_ptr(), B, T, l, stream)
-    ms = time_ms(launch, reps)
+        check_rc(so.clique_count_items_launch(
+            A.data_ptr(), cand.data_ptr(), per_v.data_ptr(), items.data_ptr(),
+            counters.data_ptr(), B, T, l, stream_ptr()), "clique_count_items")
+    t = timings(launch, reps)
     kept = int((want > 0).sum())
     heaviest = want.max(-1).values
-    row = {"kernel": "items", "case": tag, "T": T, "l": l, "B": B, "ms": ms,
+    row = {"kernel": "items", "case": tag, "T": T, "l": l, "B": B, **t,
            "plain_ms": plain_ms, "items_with_rows": kept,
            "max_item_share": float((heaviest.double() / want.sum(-1).clamp(
                min=1).double()).max()) if B else 0.0}
     rows.append(row)
-    log(f"  items    {tag:17s} T={T:3d} l={l} B={B:3d}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, {kept} items with cliques, largest item "
-        f"share of its tile {row['max_item_share']:.3f}")
+    log(f"  items    {tag:17s} T={T:3d} l={l} B={B:3d}: device "
+        f"{t['device_ms']:.5f} ms, call {t['call_ms']:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, {kept} items with cliques, largest item share "
+        f"of its tile {row['max_item_share']:.3f}")
     return row
 
 
@@ -370,21 +488,20 @@ def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
     per_x = torch.empty((B, T, T), dtype=torch.int64, device=A.device)
     items = clique_count.item_list(B, T, A.device)
     counters = torch.empty(3, dtype=torch.int32, device=A.device)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         # the wrapper's work: zero the per-item counts and the counters,
         # then the four device passes (branch, count, scan, emit)
         per_x.zero_()
         counters.zero_()
-        so.clique_list_tiles_launch(A.data_ptr(), cand.data_ptr(),
-                                    buf.data_ptr(), cnt.data_ptr(),
-                                    ovf.data_ptr(), per_x.data_ptr(),
-                                    items.data_ptr(), counters.data_ptr(), B,
-                                    T, l, cap, stream)
+        check_rc(so.clique_list_tiles_launch(
+            A.data_ptr(), cand.data_ptr(), buf.data_ptr(), cnt.data_ptr(),
+            ovf.data_ptr(), per_x.data_ptr(), items.data_ptr(),
+            counters.data_ptr(), B, T, l, cap, stream_ptr()),
+            "clique_list_tiles")
     # with the batch resident in L2, as the engine finds it after its H2D
-    ms = time_ms(launch, reps)
-    zero_ms = time_ms(buf.zero_, reps)
+    t = timings(launch, reps)
+    zero_ms = device_ms(buf.zero_)
     written = int(torch.clamp(count, max=cap).sum())
     nbytes = A.numel() * 4 + cand.numel() * 4 + written * l * 4 + B * 8
     # 2 word ops (AND, popcount) per word of every DFS step; 3 (two ANDs,
@@ -399,15 +516,15 @@ def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
     # library_ms stays None: no single PyTorch call lists cliques
     row = {"kernel": "list", "case": tag, "T": T, "l": l, "B": B,
            "capacity": cap, "rows": int(count.sum()), "written": written,
-           "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+           **t, "plain_ms": plain_ms, "bytes": nbytes,
            "word_ops": word_ops, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "zero_fill_ms": zero_ms}
     rows.append(row)
     log(f"  list     {tag:17s} T={T:3d} l={l} B={B:3d} cap={cap:5d}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {word_ops} word-ops), "
-        f"{row['rows']} rows ({written} written), zero fill of the buffer "
-        f"{zero_ms:.4f} ms")
+        f"device {t['device_ms']:.5f} ms, call {t['call_ms']:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
+        f"B, {word_ops} word-ops), {row['rows']} rows ({written} written), "
+        f"zero fill of the buffer {zero_ms:.5f} ms")
     return row
 
 
@@ -427,25 +544,29 @@ def edge_case(rows, errs, A, pairs, tag, reps=20):
         if x.numel() else 0 for x, y in zip(got, want)))
     so = _build.lib()
     cand = torch.empty((B, W), dtype=torch.int32, device=A.device)
-    n = torch.empty(B, dtype=torch.int32, device=A.device)
-    stream = torch.cuda.current_stream().cuda_stream
+    n = torch.empty(B, dtype=torch.int64, device=A.device)
 
     def launch():
-        so.edge_candidates_launch(A.data_ptr(), pairs.data_ptr(),
-                                  cand.data_ptr(), n.data_ptr(), B, T,
-                                  stream)
-    ms = time_ms(launch, reps)
+        check_rc(so.edge_candidates_launch(
+            A.data_ptr(), pairs.data_ptr(), cand.data_ptr(), n.data_ptr(), B,
+            T, stream_ptr()), "edge_candidates")
+    t = timings(launch, reps)
     # the function reads two rows and the pair of each tile and writes W
     # words and a count; 3 word ops (AND, AND, popcount) a word
     nbytes = B * (2 * W * 4 + 8 + W * 4 + 4)
     bound_ms, bound_by = bound(nbytes, 3 * W * B)
     # library_ms stays None: no single PyTorch call forms A[a] & A[b] & gt(b)
-    row = {"kernel": "edge", "case": tag, "T": T, "B": B, "ms": ms,
+    row = {"kernel": "edge", "case": tag, "T": T, "B": B, **t,
            "plain_ms": plain_ms, "bytes": nbytes, "word_ops": 3 * W * B,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "over_floor": t["device_ms"] / t["launch_floor_ms"],
+           "load_floor_ms": load_floor_ms()}
     rows.append(row)
-    log(f"  edge     {tag:17s} T={T:3d} B={B:4d}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    log(f"  edge     {tag:17s} T={T:3d} B={B:4d}: device "
+        f"{t['device_ms']:.5f} ms ({row['over_floor']:.2f}x the launch "
+        f"floor, {t['device_ms'] / row['load_floor_ms']:.2f}x the load "
+        f"floor), call {t['call_ms']:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
     return row
 
 
@@ -462,7 +583,7 @@ def first_edges(A):
 
 
 def ptxas_report(text: str):
-    """Registers, stack frame and spills of each DFS kernel entry in the
+    """Registers, stack frame and spills of each kernel entry in the
     ``-Xptxas -v`` output, keyed by a short name (kernel and template
     arguments)."""
     out, name = {}, None
@@ -472,7 +593,9 @@ def ptxas_report(text: str):
         if m:
             sym = m.group(1)
             k = re.search(r"(branch_kernel|item_kernel|list_emit_kernel|"
-                          r"list_scan_kernel)(I.*?EE)?", sym)
+                          r"list_scan_kernel|tri_warp_rows|tri_block_rows|"
+                          r"tri_thread_rows|edge_candidates_kernel)"
+                          r"(I.*?EE)?", sym)
             name = None
             if k:
                 # template arguments: ILi1E... (W), LNS0_7ItemOutE0E (mode)
@@ -573,6 +696,12 @@ def main(argv=None) -> int:
 
     # -- phase 3: kernel vs plain on seeded tiles --------------------------
     rows, errs = [], {}
+    floor = launch_floor_ms()
+    log(f"[timer] device_ms: {GRAPH_CALLS} calls captured in one CUDA graph, "
+        f"replayed between two events, / {GRAPH_CALLS}, median of 5 replays; "
+        f"call_ms: median of single-call event timings; launch floor "
+        f"(device_ms of a one-element zero_()) {floor:.5f} ms; load floor "
+        f"(of a one-element copy_()) {load_floor_ms():.5f} ms")
     log("[kernels] seeded tiles, 64 a case")
     density = {32: 0.3, 64: 0.2, 128: 0.1, 256: 0.06}
     for T in BINS:
@@ -614,7 +743,8 @@ def main(argv=None) -> int:
     main_runs = {}
     for k in (5, 7):
         # with stage_times given, the engine brackets every count_tiles
-        # call with CUDA events and sums its device seconds per bin
+        # call with CUDA events and sums the spans per bin (host enqueue
+        # included: no device time)
         stage = {}
         t0 = time.perf_counter()
         res = ebbkc.count(g, k, engine_kwargs={"stage_times": stage})
@@ -639,7 +769,7 @@ def main(argv=None) -> int:
             f"device={stage.get('device', 0.0):.2f} s tiles={res.tiles} "
             f"tiles/s={res.tiles / max(wall, 1e-9):.0f} "
             f"spilled={st.spilled_tiles}")
-        log(f"[main] k={k}: count_tiles device time "
+        log(f"[main] k={k}: count_tiles span (host enqueue included) "
             f"{main_runs[k]['count_tiles_ms']:.1f} ms "
             f"({100 * main_runs[k]['count_tiles_ms'] / 1e3 / wall:.2f}% of "
             f"the query's wall time), per bin "
@@ -685,9 +815,16 @@ def main(argv=None) -> int:
              "block partly empty")
 
     # -- a skewed batch: one heavy tile among empty ones ---------------------
-    log("[kernels] skewed batches: the heaviest tile of a main-path k=7 "
-        "sample among 255 tiles with an empty cand")
-    from repro_torch.kernels import clique_count
+    log("[kernels] skewed batches: the heaviest tile of a main-path sample "
+        "among 255 tiles with an empty cand (k=5 for the triangle kernel, "
+        "k=7 for the DFS kernels)")
+    from repro_torch.kernels import clique_count, triangle_mm
+    for which, A, cand, _ in main_path_batches(plan, 5, 32):
+        if which == "sample":
+            A2, c2 = skewed_batch(A, cand,
+                                  triangle_mm.triangle_count_tiles(A, cand))
+            r = kernel_cases(rows, errs, A2, c2, 3, "skewed k=5", reps=20)[0]
+            real[("triangle", 32, 3, "skewed")] = r
     for T in (64, 128):
         for which, A, cand, _ in main_path_batches(plan, 7, T):
             if which != "sample":
@@ -877,6 +1014,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": path_launches[name],
             "max_abs_err": errs[short], "ms": r["ms"],
+            "device_ms": r["device_ms"], "call_ms": r["call_ms"],
+            "launch_floor_ms": r["launch_floor_ms"], "timer": "cuda_graph",
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     if args.json:

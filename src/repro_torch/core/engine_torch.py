@@ -99,7 +99,8 @@ def count_packed(A: torch.Tensor, cand: torch.Tensor, l: int,
     2-plex tiles masked to 0; nv, t, f (B,) int32) -- the host combines
     them with the exact int64 closed form.  With ``stage_times`` given and
     ``A`` on a CUDA device, CUDA events bracket the ``count_tiles`` call
-    and its device seconds accumulate under ``"count_tiles_T<T>"``.
+    and its span (host enqueue included, so not the kernel's device time)
+    accumulates in seconds under ``"count_tiles_T<T>"``.
     """
     B = A.shape[0]
     z = torch.zeros(B, dtype=torch.int32, device=A.device)

@@ -115,27 +115,6 @@ __device__ __forceinline__ unsigned next_item(const Group<W>& g, unsigned* count
   return g.shfl(item, 0);
 }
 
-// Row u of a tile (W words) through the read-only path.
-template <int W>
-__device__ __forceinline__ void load_row(const uint32_t* __restrict__ p, uint32_t (&x)[W]) {
-  if constexpr (W >= 4) {
-#pragma unroll
-    for (int i = 0; i < W / 4; ++i) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      x[4 * i] = q.x;
-      x[4 * i + 1] = q.y;
-      x[4 * i + 2] = q.z;
-      x[4 * i + 3] = q.w;
-    }
-  } else if constexpr (W == 2) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    x[0] = q.x;
-    x[1] = q.y;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
-
 // Takes the lowest set bit of m and returns its vertex, or -1 if m is empty.
 template <int W>
 __device__ __forceinline__ int take_lowest(uint32_t (&m)[W]) {

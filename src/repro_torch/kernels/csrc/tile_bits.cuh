@@ -26,4 +26,28 @@ __device__ __forceinline__ bool has_bit(const uint32_t* set, int v) {
   return (set[v >> 5] >> (v & 31)) & 1u;
 }
 
+// Words 0..W-1 of one row through the read-only path, by 16-byte loads
+// where a row has four or more, 8-byte loads at W = 2.  The row must start
+// on a multiple of 4 * W bytes (so of 16 at W >= 4), as every row of an
+// aligned (B, T, W) tile does.
+template <int W>
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ p, uint32_t (&x)[W]) {
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + q);
+      x[4 * q] = t.x;
+      x[4 * q + 1] = t.y;
+      x[4 * q + 2] = t.z;
+      x[4 * q + 3] = t.w;
+    }
+  } else if constexpr (W == 2) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
 }  // namespace repro_torch

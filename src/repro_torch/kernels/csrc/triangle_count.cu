@@ -10,14 +10,34 @@
 //   AND + popcount over those words, one pass per induced edge; at the
 //   pipeline's batch of 256 tiles the input is 0.25-2 MB, so a launch is
 //   bound by latency and by the integer (ALU/popc) issue rate, not by HBM.
-// Design: one CTA per tile, 256 threads.  The tile is staged in shared
-//   memory already masked by cand on rows and columns, so the inner loop
-//   needs no cand test.  Thread v walks the neighbors u > v of row v by
-//   lowest set bit (__ffs) and adds popc(row_v & row_u & gt(u)) word by
-//   word, starting at u's word (gt(u) is zero below it).  gt is computed,
-//   not loaded.  Integer arithmetic keeps it exact at every bin (the MXU
-//   form relied on 6*C(256,3) < 2^24).  A warp-shuffle reduction and one
-//   shared-memory pass produce the tile's uint32.  Later work: int8 MMA.
+//   Most main-path tiles reach the kernel with an empty cand (the 2-plex
+//   router zeroes them), so a tile that has no work must cost next to
+//   nothing.
+// Every design counts each triangle v < u < w once, at its edge (v, u):
+//   popc(U_v & U_u) with U_v = A_v & cand & gt(v) the row's upper
+//   neighbours inside cand (rows outside cand are 0).  Integer arithmetic
+//   keeps it exact at every bin (the MXU form relied on 6*C(256,3) < 2^24),
+//   and the count is written zero-extended into an int64 output, so the
+//   wrapper runs no op after the launch.  The designs:
+//   - kWarpRows, T = 32 and 64: a warp per tile, several tiles a block, no
+//     shared memory and no __syncthreads.  Lane j holds U_j (and U_{j+32}
+//     at T = 64) in registers.  An unrolled warp-uniform loop over u
+//     fetches U_u by __shfl_sync (a word that no row holds, as under an
+//     empty cand, is skipped); a lane whose row holds u adds
+//     popc(U_v & U_u).  __reduce_add_sync sums the lanes.
+//   - kBlockRows, T >= 128: a block of 32 warps per tile.  The rows are
+//     masked once into shared memory, word-major, so that 32 lanes reading
+//     32 consecutive rows' word w hit 32 banks.  Warps take the rows v in
+//     a stride (4 or 8 rows a warp: a row's steps wait on shared-memory
+//     loads, so many short row lists in flight beat a few long ones);
+//     within a row lane L takes the vertices u = 32 * w + L, so the set
+//     bits of a dense row spread over 32 lanes, and does the (W - w)-word
+//     AND + popcount.  Sums go warp first, then block.  A tile with an
+//     empty cand writes 0 at once.
+//   - kThreadRows, any T: the first port's design, a 256-thread block per
+//     tile in which thread v walks row v.  Slower than the bin's new design
+//     at every bin on the H100 (PERF.md), it is kept only as the baseline
+//     that the smoke test times the others against.
 #include <cuda_runtime.h>
 
 #include "tile_bits.cuh"
@@ -25,15 +45,134 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 256;
+enum Design : int { kByBin = 0, kThreadRows = 1, kWarpRows = 2, kBlockRows = 3 };
 
-__global__ void __launch_bounds__(kThreads)
-triangle_count_kernel(const uint32_t* __restrict__ A,
-                      const uint32_t* __restrict__ cand,
-                      uint32_t* __restrict__ out, int T) {
+constexpr int kWarpTiles = 2;      // tiles (warps) a block in kWarpRows
+constexpr int kBlockWarps = 32;    // warps a block (one tile) in kBlockRows
+constexpr int kBlockThreads = 256; // threads a block (one tile) in kThreadRows
+
+__device__ __forceinline__ void store_count(long long* out, int b, uint32_t count) {
+  out[b] = static_cast<long long>(count);  // zero-extended uint32
+}
+
+// kWarpRows: one warp per tile.  Lane j holds rows v = j + 32 h for h < W;
+// row v has no bits in words below h (gt(v) clears them), so r[h][w] with
+// w < h stays 0.
+template <int W>
+__global__ void __launch_bounds__(kWarpTiles * 32)
+tri_warp_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
+              long long* __restrict__ out, int B) {
+  constexpr int T = 32 * W;
+  const int b = blockIdx.x * kWarpTiles + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;  // the whole warp leaves together
+  const uint32_t* At = A + static_cast<size_t>(b) * T * W;
+  uint32_t c[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) c[w] = __ldg(cand + static_cast<size_t>(b) * W + w);
+  uint32_t r[W][W];
+#pragma unroll
+  for (int h = 0; h < W; ++h) {
+    const int v = lane + 32 * h;
+    uint32_t x[W];
+    load_row<W>(At + v * W, x);
+    const bool in = (c[h] >> lane) & 1u;
+#pragma unroll
+    for (int w = 0; w < W; ++w) r[h][w] = in ? (x[w] & c[w] & gt_word(v, w)) : 0u;
+  }
+  uint32_t acc = 0;
+#pragma unroll
+  for (int wu = 0; wu < W; ++wu) {
+    // skip the word when no row holds a vertex of it (an empty cand)
+    uint32_t any = 0;
+#pragma unroll
+    for (int h = 0; h < W; ++h) any |= r[h][wu];
+    if (!__any_sync(kFullMask, any != 0u)) continue;
+    // unrolled, so the 32 shuffles overlap instead of waiting in turn
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      uint32_t ru[W];  // U_u for u = 32 * wu + j, held by lane j as row h = wu
+#pragma unroll
+      for (int w = wu; w < W; ++w) ru[w] = __shfl_sync(kFullMask, r[wu][w], j);
+#pragma unroll
+      for (int h = 0; h <= wu; ++h) {  // rows h > wu hold no bit of word wu
+        if ((r[h][wu] >> j) & 1u) {
+#pragma unroll
+          for (int w = wu; w < W; ++w) acc += __popc(r[h][w] & ru[w]);
+        }
+      }
+    }
+  }
+  acc = __reduce_add_sync(kFullMask, acc);
+  if (lane == 0) store_count(out, b, acc);
+}
+
+// kBlockRows: one block of kBlockWarps warps per tile.
+template <int W>
+__global__ void __launch_bounds__(kBlockWarps * 32)
+tri_block_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
+               long long* __restrict__ out) {
+  constexpr int T = 32 * W;
+  __shared__ uint32_t rows[W * T];  // word-major: rows[w * T + v] = word w of U_v
+  __shared__ uint32_t warp_sums[kBlockWarps];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t* At = A + static_cast<size_t>(b) * T * W;
+  uint32_t c[W];
+  bool empty = true;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    c[w] = __ldg(cand + static_cast<size_t>(b) * W + w);
+    empty &= c[w] == 0u;
+  }
+  if (empty) {  // block-uniform: nothing in the tile
+    if (threadIdx.x == 0) store_count(out, b, 0u);
+    return;
+  }
+  for (int v = threadIdx.x; v < T; v += kBlockWarps * 32) {
+    uint32_t x[W];
+    load_row<W>(At + v * W, x);
+    const bool in = has_bit(c, v);
+#pragma unroll
+    for (int w = 0; w < W; ++w) rows[w * T + v] = in ? (x[w] & c[w] & gt_word(v, w)) : 0u;
+  }
+  __syncthreads();
+
+  uint32_t acc = 0;
+#pragma unroll 4
+  for (int i = 0; i < T / kBlockWarps; ++i) {  // rows v = warp + i * kBlockWarps
+    const int v = warp + i * kBlockWarps;
+    uint32_t rv[W];  // U_v, the same word for every lane (a broadcast read)
+#pragma unroll
+    for (int w = 0; w < W; ++w) rv[w] = rows[w * T + v];
+#pragma unroll
+    for (int wu = 0; wu < W; ++wu) {
+      if ((rv[wu] >> lane) & 1u) {
+        const int u = 32 * wu + lane;
+#pragma unroll
+        for (int w = wu; w < W; ++w) acc += __popc(rv[w] & rows[w * T + u]);
+      }
+    }
+  }
+  acc = __reduce_add_sync(kFullMask, acc);
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t s = lane < kBlockWarps ? warp_sums[lane] : 0u;
+    s = __reduce_add_sync(kFullMask, s);
+    if (lane == 0) store_count(out, b, s);
+  }
+}
+
+// kThreadRows: the first port's design, a block per tile, thread v walks
+// the neighbours u > v of row v by lowest set bit.
+__global__ void __launch_bounds__(kBlockThreads)
+tri_thread_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
+                long long* __restrict__ out, int T) {
   __shared__ uint32_t rows[kMaxT * kMaxW];
   __shared__ uint32_t cmask[kMaxW];
-  __shared__ uint32_t warp_sums[kThreads / 32];
+  __shared__ uint32_t warp_sums[kBlockThreads / 32];
 
   const int W = T >> 5;
   const int b = blockIdx.x;
@@ -66,23 +205,59 @@ triangle_count_kernel(const uint32_t* __restrict__ A,
   __syncthreads();
   if (threadIdx.x == 0) {
     uint32_t s = 0;
-    for (int i = 0; i < kThreads / 32; ++i) s += warp_sums[i];
-    out[b] = s;
+    for (int i = 0; i < kBlockThreads / 32; ++i) s += warp_sums[i];
+    store_count(out, b, s);
   }
+}
+
+template <int W>
+int launch(int design, const uint32_t* A, const uint32_t* cand, long long* out, int B,
+           cudaStream_t stream) {
+  constexpr int T = 32 * W;
+  if (design == kByBin) design = W <= 2 ? kWarpRows : kBlockRows;
+  if (design == kThreadRows) {
+    tri_thread_rows<<<B, kBlockThreads, 0, stream>>>(A, cand, out, T);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (W <= 2) {
+    if (design == kWarpRows) {
+      tri_warp_rows<W><<<(B + kWarpTiles - 1) / kWarpTiles, kWarpTiles * 32, 0, stream>>>(
+          A, cand, out, B);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  if constexpr (W >= 4) {
+    if (design == kBlockRows) {
+      tri_block_rows<W><<<B, kBlockWarps * 32, 0, stream>>>(A, cand, out);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// A: (B, T, T/32) words, cand: (B, T/32), out: (B,), all device pointers.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void* out,
-                                           int B, int T, void* stream) {
-  if (B > 0) {
-    repro_torch::triangle_count_kernel<<<B, repro_torch::kThreads, 0,
-                                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(A), static_cast<const uint32_t*>(cand),
-        static_cast<uint32_t*>(out), T);
+// A: (B, T, T/32) words, cand: (B, T/32), out: (B,) int64, all device
+// pointers; T in {32, 64, 128, 256}.  design 0 runs the bin's design
+// (kWarpRows at T <= 64, kBlockRows above); 1, 2 and 3 pick kThreadRows,
+// kWarpRows (T <= 64) or kBlockRows (T >= 128), for timing them against
+// each other.  Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
+// argument it does not take).
+extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void* out, int B,
+                                           int T, int design, void* stream) {
+  using namespace repro_torch;
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* a = static_cast<const uint32_t*>(A);
+  const auto* c = static_cast<const uint32_t*>(cand);
+  auto* o = static_cast<long long*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (T) {
+    case 32: return launch<1>(design, a, c, o, B, st);
+    case 64: return launch<2>(design, a, c, o, B, st);
+    case 128: return launch<4>(design, a, c, o, B, st);
+    case 256: return launch<8>(design, a, c, o, B, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@ Port of the Pallas kernel ``repro/kernels/intersect.py``
 (``edge_candidates``): for each tile's pair (a, b) of local vertices, the
 sub-branch candidate set ``cand = A[a] & A[b] & gt(b)`` -- N(a) & N(b)
 restricted to vertices above b -- and its size.  On Hopper the kernel is
-hand-written CUDA (``csrc/edge_candidates.cu``), one thread per tile-word.
+hand-written CUDA (``csrc/edge_candidates.cu``), one thread per tile,
+which writes the sizes as int64 itself, so a call is one launch after the
+checks.
 
 :func:`edge_candidates` is the wrapper: a CUDA tensor goes to the kernel,
 a CPU tensor to the plain version :func:`edge_candidates_torch`, the torch
@@ -68,8 +70,11 @@ def edge_candidates(A: torch.Tensor, pairs: torch.Tensor
         return edge_candidates_torch(A, pairs)
     if A.device.type != "cuda":
         raise ValueError(f"no edge_candidates kernel for device {A.device}")
+    if pairs.data_ptr() % 8:
+        raise ValueError("pairs must start on an 8-byte boundary (the kernel "
+                         "reads each pair as one int2)")
     cand = torch.empty((B, W), dtype=torch.int32, device=A.device)
-    n = torch.empty(B, dtype=torch.int32, device=A.device)
+    n = torch.empty(B, dtype=torch.int64, device=A.device)
     if B:
         so = _build.lib()
         with torch.cuda.device(A.device):
@@ -81,4 +86,4 @@ def edge_candidates(A: torch.Tensor, pairs: torch.Tensor
             raise RuntimeError(f"edge_candidates launch failed: CUDA error "
                                f"{rc}")
         launches += 1
-    return cand, n.to(torch.int64) & MASK32
+    return cand, n

@@ -5,8 +5,10 @@ Port of the Pallas kernel ``repro/kernels/triangle_mm.py``
 MXU.  On Hopper the kernel is hand-written CUDA
 (``csrc/triangle_count.cu``): it computes the same per-tile count as the
 integer bitset form ``common.triangles_within`` -- exact at every bin, no
-bf16/f32 margin to rely on.  The matmul form survives only as a yardstick
-that ``chip_smoke.py`` times beside the kernel.
+bf16/f32 margin to rely on -- with a warp per tile at T <= 64 and a block
+per tile above, and writes the counts as int64 itself, so a call is one
+launch.  The matmul form survives only as a yardstick that
+``chip_smoke.py`` times beside the kernel.
 
 :func:`triangle_count_tiles` is the wrapper: a CUDA tensor goes to the
 kernel, a CPU tensor to the plain version :func:`triangle_count_tiles_torch`.
@@ -16,13 +18,17 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import (MASK32, check_tiles, gt_masks, triangles_within_chunked,
-                     widen)
+from .common import check_tiles, gt_masks, triangles_within_chunked, widen
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
 #: calls of the plain version so far
 plain_calls = 0
+
+#: the C entry point's ``design`` argument: 0 runs each bin's own design;
+#: 1 (thread per row, the first port's), 2 (warp per tile, T <= 64) and 3
+#: (block per tile, T >= 128) pin one, for timing them against each other
+BIN_DESIGN, THREAD_ROWS, WARP_ROWS, BLOCK_ROWS = 0, 1, 2, 3
 
 
 def triangle_count_tiles_torch(A: torch.Tensor,
@@ -47,15 +53,16 @@ def triangle_count_tiles(A: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
         return triangle_count_tiles_torch(A, cand)
     if A.device.type != "cuda":
         raise ValueError(f"no triangle kernel for device {A.device}")
-    out = torch.empty(B, dtype=torch.int32, device=A.device)
+    out = torch.empty(B, dtype=torch.int64, device=A.device)
     if B:
         so = _build.lib()
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = so.triangle_count_tiles_launch(
-                A.data_ptr(), cand.data_ptr(), out.data_ptr(), B, T, stream)
+                A.data_ptr(), cand.data_ptr(), out.data_ptr(), B, T,
+                BIN_DESIGN, stream)
         if rc:
             raise RuntimeError(f"triangle_count_tiles launch failed: CUDA "
                                f"error {rc}")
         launches += 1
-    return out.to(torch.int64) & MASK32
+    return out

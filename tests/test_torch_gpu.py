@@ -68,6 +68,123 @@ def test_kernels_match_plain_on_card(cuda, T):
     assert after["clique_count_tiles"] == before["clique_count_tiles"] + 6
 
 
+def structured_tiles(case, T, seed=0):
+    """One tile: ``complete`` (K_T under a full cand, C(T, 3) triangles),
+    ``heavy_row`` (vertex 0 adjacent to all over a sparse rest) or
+    ``empty_cand`` (a full A under an empty cand)."""
+    rng = np.random.default_rng(seed + T)
+    if case == "heavy_row":
+        upper = np.triu(rng.random((T, T)) < 0.1, 1)
+        upper[0, 1:] = True
+    else:
+        upper = np.triu(np.ones((T, T), dtype=bool), 1)
+    dense = upper | upper.T
+    cmask = np.full(T, case != "empty_cand")
+    return (torch.from_numpy(pack_bits(dense[None])).view(torch.int32),
+            torch.from_numpy(pack_bits(cmask[None])).view(torch.int32))
+
+
+def _assert_triangle_and_edge_match(A, cand, pairs):
+    """Triangle kernel and edge_candidates against their plain versions,
+    exactly, with int64 counts."""
+    got = triangle_mm.triangle_count_tiles(A, cand)
+    assert got.dtype == torch.int64 and got.device.type == "cuda"
+    assert torch.equal(got, triangle_mm.triangle_count_tiles_torch(A, cand))
+    cand_e, n = intersect.edge_candidates(A, pairs)
+    assert n.dtype == torch.int64 and n.device.type == "cuda"
+    want = intersect.edge_candidates_torch(A, pairs)
+    assert torch.equal(cand_e, want[0]) and torch.equal(n, want[1])
+    return got
+
+
+@pytest.mark.parametrize("T", BINS)
+@pytest.mark.parametrize("case", ["complete", "heavy_row", "empty_cand"])
+def test_triangle_and_edge_kernels_on_structured_tiles(cuda, case, T):
+    from math import comb
+    A, cand = (x.to(cuda) for x in structured_tiles(case, T))
+    pairs = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    got = _assert_triangle_and_edge_match(A, cand, pairs)
+    if case != "heavy_row":
+        assert int(got[0]) == (comb(T, 3) if case == "complete" else 0)
+
+
+@pytest.mark.parametrize("B", [1, 7, 257])
+@pytest.mark.parametrize("T", BINS)
+def test_triangle_and_edge_kernels_at_batch_sizes(cuda, B, T):
+    A, cand = random_tiles(7 * B + T, max(B, 2), T, _DENSITY[T])
+    A, cand = A[:B].contiguous(), cand[:B].contiguous()
+    for i, case in enumerate(("complete", "heavy_row", "empty_cand")):
+        if B > 2 + i:  # structured tiles among random ones, the last
+            A[B - 1 - i], cand[B - 1 - i] = (x[0] for x in structured_tiles(
+                case, T))
+    rng = np.random.default_rng(B + T)
+    a = rng.integers(0, T - 1, B)
+    b = a + 1 + rng.integers(0, T - 1 - a)
+    pairs = torch.from_numpy(np.stack([a, b], 1).astype(np.int32))
+    _assert_triangle_and_edge_match(A.to(cuda), cand.to(cuda),
+                                    pairs.to(cuda))
+
+
+@pytest.mark.parametrize("T", BINS)
+def test_every_triangle_design_matches_plain(cuda, T):
+    """Each design the C entry point can pin for a bin (the bins keep the
+    fastest), on random tiles with the structured ones among them."""
+    from repro_torch.kernels import _build
+    A, cand = random_tiles(T + 11, 61, T, _DENSITY[T])
+    for i, case in enumerate(("complete", "heavy_row", "empty_cand")):
+        A[20 + i], cand[20 + i] = (x[0] for x in structured_tiles(case, T))
+    A, cand = A.to(cuda), cand.to(cuda)
+    want = triangle_mm.triangle_count_tiles_torch(A, cand)
+    designs = [triangle_mm.BIN_DESIGN, triangle_mm.THREAD_ROWS]
+    designs += [triangle_mm.WARP_ROWS] if T <= 64 else [triangle_mm.BLOCK_ROWS]
+    so = _build.lib()
+    for design in designs:
+        out = torch.full((61,), -1, dtype=torch.int64, device=cuda)
+        assert so.triangle_count_tiles_launch(
+            A.data_ptr(), cand.data_ptr(), out.data_ptr(), 61, T, design,
+            torch.cuda.current_stream().cuda_stream) == 0
+        assert torch.equal(out, want), design
+    out = torch.empty(61, dtype=torch.int64, device=cuda)
+    for design in ([triangle_mm.BLOCK_ROWS] if T <= 64
+                   else [triangle_mm.WARP_ROWS]):
+        assert so.triangle_count_tiles_launch(
+            A.data_ptr(), cand.data_ptr(), out.data_ptr(), 61, T, design,
+            torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.parametrize("T", BINS)
+def test_edge_candidates_on_pairs_of_every_vertex(cuda, T):
+    """Every vertex paired with the next and with the last: every word and
+    every bit of gt(b) in play."""
+    A, _ = cliquey_tiles(T + 1, 2 * T - 2, T, s_max=T, p=0.6)
+    a = np.concatenate([np.arange(T - 1), np.arange(T - 1)])
+    b = np.concatenate([np.arange(1, T), np.full(T - 1, T - 1)])
+    pairs = torch.from_numpy(np.stack([a, b], 1).astype(np.int32)).to(cuda)
+    A = A.to(cuda)
+    got = intersect.edge_candidates(A, pairs)
+    want = intersect.edge_candidates_torch(A, pairs)
+    assert got[1].dtype == torch.int64
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_triangle_wrapper_is_one_launch(cuda):
+    """One wrapper call is one kernel on the card: the launch counter and
+    the profiler's device kernels agree, and no torch op follows."""
+    from torch.profiler import ProfilerActivity, profile
+    A, cand = (x.to(cuda) for x in random_tiles(3, 256, 32, 0.35))
+    triangle_mm.triangle_count_tiles(A, cand)  # builds the library
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["triangle_count_tiles"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            triangle_mm.triangle_count_tiles(A, cand)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert ops.launch_counts()["triangle_count_tiles"] == before + 3
+    assert len(kernels) == 3 and all("tri_" in k for k in kernels), kernels
+
+
 def test_kernel_wrappers_reject_bad_input_on_card(cuda):
     A, cand = (x.to(cuda) for x in random_tiles(1, 4, 32, 0.3))
     with pytest.raises(TypeError):
@@ -156,6 +273,9 @@ def test_list_wrappers_reject_bad_input_on_card(cuda):
     with pytest.raises(ValueError):
         intersect.edge_candidates(A, torch.full((4, 2), 32, dtype=torch.int32,
                                                 device=cuda))
+    odd = torch.zeros(9, dtype=torch.int32, device=cuda)[1:].view(4, 2)
+    with pytest.raises(ValueError):               # pairs not 8-byte aligned
+        intersect.edge_candidates(A, odd)
     buf, cnt, ovf = clique_list.clique_list_tiles(A[:0], cand[:0], 4, 8)
     assert buf.shape == (0, 8, 4) and cnt.shape == ovf.shape == (0,)
 

@@ -96,6 +96,37 @@ def test_triangle_plain_matches_reference(T):
             jnp.asarray(A), jnp.asarray(cand))).astype(np.int64))
 
 
+def structured_triangle_tiles(case, T, seed=0):
+    """One tile of a kind a triangle kernel must get right at every bin:
+    ``complete`` (K_T under a full cand: C(T, 3) triangles, 2,763,520 at
+    T = 256), ``heavy_row`` (vertex 0 adjacent to all over a sparse rest,
+    the skew that a thread per row serialises) and ``empty_cand`` (a full
+    A under an empty cand: 0)."""
+    rng = np.random.default_rng(seed + T)
+    if case == "heavy_row":
+        upper = np.triu(rng.random((T, T)) < 0.1, 1)
+        upper[0, 1:] = True
+    else:
+        upper = np.triu(np.ones((T, T), dtype=bool), 1)
+    dense = upper | upper.T
+    cmask = np.full(T, case != "empty_cand")
+    return pack_bits(dense[None]), pack_bits(cmask[None])
+
+
+@pytest.mark.parametrize("T", BINS)
+@pytest.mark.parametrize("case", ["complete", "heavy_row", "empty_cand"])
+def test_triangle_plain_on_structured_tiles(case, T):
+    from math import comb
+    A, cand = structured_triangle_tiles(case, T)
+    got = triangle_mm.triangle_count_tiles_torch(*port(A, cand)).numpy()
+    np.testing.assert_array_equal(got, jax_count(A, cand, 3, "mxu"))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.triangle_count_tiles_ref(
+            jnp.asarray(A), jnp.asarray(cand))).astype(np.int64))
+    if case != "heavy_row":
+        assert int(got[0]) == (comb(T, 3) if case == "complete" else 0)
+
+
 @pytest.mark.parametrize("T", BINS)
 @pytest.mark.parametrize("l", [3, 4, 5, 6])
 def test_dfs_plain_matches_reference(T, l):
