@@ -29,8 +29,7 @@ one CUDA graph and replayed between two CUDA events, so the host is out of
 it; ``call_ms`` is one call timed by two events, which is what a caller
 waits, host dispatch included; ``launch_floor_ms`` is the device time of
 zeroing a one-element tensor, measured the same way: the least a launch
-takes.  The triangle kernel is also timed, on every case, in the first
-port's design, which its C entry point keeps as the baseline.
+takes.
 
 Output: the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` JSON line with each kernel's launches on the main
@@ -178,17 +177,6 @@ def launch_floor_ms() -> float:
     return _FLOOR["ms"]
 
 
-def load_floor_ms() -> float:
-    """The load floor: :func:`device_ms` of copying one element from one
-    tensor to another, the least a launch takes whose store waits on a
-    load from device memory.  Measured once a run."""
-    import torch
-    if "load_ms" not in _FLOOR:
-        src, dst = torch.zeros(2, 1, device="cuda")
-        _FLOOR["load_ms"] = device_ms(lambda: dst.copy_(src))
-    return _FLOOR["load_ms"]
-
-
 def stream_ptr() -> int:
     """The current CUDA stream's handle (the capture stream inside a CUDA
     graph capture)."""
@@ -327,27 +315,10 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
 
             out64 = torch.empty(B, dtype=torch.int64, device=A.device)
 
-            def design_launch(design):
-                def launch():
-                    check_rc(so.triangle_count_tiles_launch(
-                        A.data_ptr(), cand.data_ptr(), out64.data_ptr(), B,
-                        T, design, stream_ptr()), "triangle_count_tiles")
-                return launch
-            launch = design_launch(triangle_mm.BIN_DESIGN)
-            # the first port's design and the new one of this bin, each
-            # held against the plain version and timed the same way (the
-            # row's own time is the bin's design)
-            extra["design_device_ms"] = {}
-            for name, design in (
-                    ("thread_rows", triangle_mm.THREAD_ROWS),
-                    ("warp_rows", triangle_mm.WARP_ROWS) if T <= 64 else
-                    ("block_rows", triangle_mm.BLOCK_ROWS)):
-                out64.fill_(-1)
-                design_launch(design)()
-                if not torch.equal(out64, want):
-                    fail(f"triangle design {name} != plain at T={T} ({tag})")
-                extra["design_device_ms"][name] = device_ms(
-                    design_launch(design))
+            def launch():
+                check_rc(so.triangle_count_tiles_launch(
+                    A.data_ptr(), cand.data_ptr(), out64.data_ptr(), B, T,
+                    stream_ptr()), "triangle_count_tiles")
             # 3 word ops (AND, popcount, add) per word of every induced edge
             word_ops = 3 * W * int(edges_within_ref(A, cand).sum())
             lib_fn, lib_counts = bmm_yardstick(A, cand)
@@ -402,9 +373,7 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
             f"{plain_ms:.3f} ms, bound {row['bound_ms']:.6f} ms "
             f"({row['bound_by']}: {nbytes} B, {word_ops} word-ops)"
             + (f", bmm device {lib_ms:.5f} ms, wrapper device "
-               f"{extra['wrapper_device_ms']:.5f} ms, designs " + ", ".join(
-                   f"{n} {v:.5f}" for n, v in
-                   extra["design_device_ms"].items())
+               f"{extra['wrapper_device_ms']:.5f} ms"
                if lib_ms is not None else ""))
     return results
 
@@ -558,14 +527,12 @@ def edge_case(rows, errs, A, pairs, tag, reps=20):
     # library_ms stays None: no single PyTorch call forms A[a] & A[b] & gt(b)
     row = {"kernel": "edge", "case": tag, "T": T, "B": B, **t,
            "plain_ms": plain_ms, "bytes": nbytes, "word_ops": 3 * W * B,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-           "over_floor": t["device_ms"] / t["launch_floor_ms"],
-           "load_floor_ms": load_floor_ms()}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     rows.append(row)
     log(f"  edge     {tag:17s} T={T:3d} B={B:4d}: device "
-        f"{t['device_ms']:.5f} ms ({row['over_floor']:.2f}x the launch "
-        f"floor, {t['device_ms'] / row['load_floor_ms']:.2f}x the load "
-        f"floor), call {t['call_ms']:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{t['device_ms']:.5f} ms "
+        f"({t['device_ms'] / t['launch_floor_ms']:.2f}x the launch floor), "
+        f"call {t['call_ms']:.4f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by})")
     return row
 
@@ -594,7 +561,7 @@ def ptxas_report(text: str):
             sym = m.group(1)
             k = re.search(r"(branch_kernel|item_kernel|list_emit_kernel|"
                           r"list_scan_kernel|tri_warp_rows|tri_block_rows|"
-                          r"tri_thread_rows|edge_candidates_kernel)"
+                          r"edge_candidates_kernel)"
                           r"(I.*?EE)?", sym)
             name = None
             if k:
@@ -700,8 +667,7 @@ def main(argv=None) -> int:
     log(f"[timer] device_ms: {GRAPH_CALLS} calls captured in one CUDA graph, "
         f"replayed between two events, / {GRAPH_CALLS}, median of 5 replays; "
         f"call_ms: median of single-call event timings; launch floor "
-        f"(device_ms of a one-element zero_()) {floor:.5f} ms; load floor "
-        f"(of a one-element copy_()) {load_floor_ms():.5f} ms")
+        f"(device_ms of a one-element zero_()) {floor:.5f} ms")
     log("[kernels] seeded tiles, 64 a case")
     density = {32: 0.3, 64: 0.2, 128: 0.1, 256: 0.06}
     for T in BINS:

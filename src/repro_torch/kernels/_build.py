@@ -110,8 +110,7 @@ def build(verbose: bool = False) -> Path:
 def _bind(path: Path) -> ctypes.CDLL:
     so = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    so.triangle_count_tiles_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32,
-                                               ptr]
+    so.triangle_count_tiles_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     so.triangle_count_tiles_launch.restype = i32
     for name in ("clique_count_tiles_launch", "clique_count_items_launch"):
         getattr(so, name).argtypes = [ptr] * 5 + [i32] * 3 + [ptr]

@@ -196,6 +196,11 @@ def to_words(x: torch.Tensor) -> torch.Tensor:
 def check_adjacency(A: torch.Tensor) -> Tuple[int, int, int]:
     """Validate packed tiles for the kernels: a contiguous (B, T, T//32)
     int32 word view with T one of :data:`TILE_WIDTHS`.  Returns (B, T, W).
+
+    On the card the kernels read a row by loads of up to 16 bytes
+    (``csrc/tile_bits.cuh`` ``load_row``), so a CUDA tensor must start on a
+    multiple of ``min(16, 4 * W)`` bytes; an offset view that is not
+    raises here instead of faulting on the card.
     """
     if A.dtype != torch.int32:
         raise TypeError(f"packed words must be an int32 view, got {A.dtype}")
@@ -208,6 +213,9 @@ def check_adjacency(A: torch.Tensor) -> Tuple[int, int, int]:
             f"W == T // 32")
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
+    if A.device.type == "cuda" and A.data_ptr() % min(16, 4 * W):
+        raise ValueError(f"A must start on a {min(16, 4 * W)}-byte boundary "
+                         f"on the card (the kernels load whole rows)")
     return B, T, W
 
 

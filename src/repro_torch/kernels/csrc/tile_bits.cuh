@@ -9,8 +9,6 @@
 
 namespace repro_torch {
 
-constexpr int kMaxT = 256;           // widest pipeline bin
-constexpr int kMaxW = kMaxT / 32;    // words per row at the widest bin
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // Word w of gt(u): the bits of the vertices strictly above u.

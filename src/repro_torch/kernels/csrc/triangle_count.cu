@@ -18,15 +18,16 @@
 //   neighbours inside cand (rows outside cand are 0).  Integer arithmetic
 //   keeps it exact at every bin (the MXU form relied on 6*C(256,3) < 2^24),
 //   and the count is written zero-extended into an int64 output, so the
-//   wrapper runs no op after the launch.  The designs:
-//   - kWarpRows, T = 32 and 64: a warp per tile, several tiles a block, no
-//     shared memory and no __syncthreads.  Lane j holds U_j (and U_{j+32}
-//     at T = 64) in registers.  An unrolled warp-uniform loop over u
-//     fetches U_u by __shfl_sync (a word that no row holds, as under an
-//     empty cand, is skipped); a lane whose row holds u adds
+//   wrapper runs no op after the launch.  The entry point picks the design
+//   by T:
+//   - tri_warp_rows, T = 32 and 64: a warp per tile, several tiles a
+//     block, no shared memory and no __syncthreads.  Lane j holds U_j
+//     (and U_{j+32} at T = 64) in registers.  An unrolled warp-uniform
+//     loop over u fetches U_u by __shfl_sync (a word that no row holds, as
+//     under an empty cand, is skipped); a lane whose row holds u adds
 //     popc(U_v & U_u).  __reduce_add_sync sums the lanes.
-//   - kBlockRows, T >= 128: a block of 32 warps per tile.  The rows are
-//     masked once into shared memory, word-major, so that 32 lanes reading
+//   - tri_block_rows, T >= 128: a block of 32 warps per tile.  The rows
+//     are masked once into shared memory, word-major, so that 32 lanes reading
 //     32 consecutive rows' word w hit 32 banks.  Warps take the rows v in
 //     a stride (4 or 8 rows a warp: a row's steps wait on shared-memory
 //     loads, so many short row lists in flight beat a few long ones);
@@ -34,10 +35,9 @@
 //     bits of a dense row spread over 32 lanes, and does the (W - w)-word
 //     AND + popcount.  Sums go warp first, then block.  A tile with an
 //     empty cand writes 0 at once.
-//   - kThreadRows, any T: the first port's design, a 256-thread block per
-//     tile in which thread v walks row v.  Slower than the bin's new design
-//     at every bin on the H100 (PERF.md), it is kept only as the baseline
-//     that the smoke test times the others against.
+//   The first port's design (a 256-thread block per tile, thread v walking
+//   row v) was slower than both at every bin on the H100 (PERF.md) and is
+//   gone.
 #include <cuda_runtime.h>
 
 #include "tile_bits.cuh"
@@ -45,19 +45,16 @@
 namespace repro_torch {
 namespace {
 
-enum Design : int { kByBin = 0, kThreadRows = 1, kWarpRows = 2, kBlockRows = 3 };
-
-constexpr int kWarpTiles = 2;      // tiles (warps) a block in kWarpRows
-constexpr int kBlockWarps = 32;    // warps a block (one tile) in kBlockRows
-constexpr int kBlockThreads = 256; // threads a block (one tile) in kThreadRows
+constexpr int kWarpTiles = 2;    // tiles (warps) a block in tri_warp_rows
+constexpr int kBlockWarps = 32;  // warps a block (one tile) in tri_block_rows
 
 __device__ __forceinline__ void store_count(long long* out, int b, uint32_t count) {
   out[b] = static_cast<long long>(count);  // zero-extended uint32
 }
 
-// kWarpRows: one warp per tile.  Lane j holds rows v = j + 32 h for h < W;
-// row v has no bits in words below h (gt(v) clears them), so r[h][w] with
-// w < h stays 0.
+// tri_warp_rows: one warp per tile.  Lane j holds rows v = j + 32 h for
+// h < W; row v has no bits in words below h (gt(v) clears them), so
+// r[h][w] with w < h stays 0.
 template <int W>
 __global__ void __launch_bounds__(kWarpTiles * 32)
 tri_warp_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
@@ -107,7 +104,7 @@ tri_warp_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
   if (lane == 0) store_count(out, b, acc);
 }
 
-// kBlockRows: one block of kBlockWarps warps per tile.
+// tri_block_rows: one block of kBlockWarps warps per tile.
 template <int W>
 __global__ void __launch_bounds__(kBlockWarps * 32)
 tri_block_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
@@ -165,88 +162,25 @@ tri_block_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand
   }
 }
 
-// kThreadRows: the first port's design, a block per tile, thread v walks
-// the neighbours u > v of row v by lowest set bit.
-__global__ void __launch_bounds__(kBlockThreads)
-tri_thread_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
-                long long* __restrict__ out, int T) {
-  __shared__ uint32_t rows[kMaxT * kMaxW];
-  __shared__ uint32_t cmask[kMaxW];
-  __shared__ uint32_t warp_sums[kBlockThreads / 32];
-
-  const int W = T >> 5;
-  const int b = blockIdx.x;
-  const uint32_t* At = A + static_cast<size_t>(b) * T * W;
-  if (threadIdx.x < W) cmask[threadIdx.x] = cand[static_cast<size_t>(b) * W + threadIdx.x];
-  __syncthreads();
-  for (int i = threadIdx.x; i < T * W; i += blockDim.x) {
-    const int v = i / W;
-    const int w = i - v * W;
-    rows[i] = has_bit(cmask, v) ? (At[i] & cmask[w]) : 0u;
-  }
-  __syncthreads();
-
-  uint32_t acc = 0;
-  for (int v = threadIdx.x; v < T; v += blockDim.x) {
-    const uint32_t* rv = rows + v * W;
-    for (int wu = v >> 5; wu < W; ++wu) {
-      uint32_t nb = rv[wu] & gt_word(v, wu);
-      while (nb) {
-        const int u = (wu << 5) + __ffs(nb) - 1;
-        nb &= nb - 1u;
-        const uint32_t* ru = rows + u * W;
-        for (int w = wu; w < W; ++w) acc += __popc(rv[w] & ru[w] & gt_word(u, w));
-      }
-    }
-  }
-
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(kFullMask, acc, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t s = 0;
-    for (int i = 0; i < kBlockThreads / 32; ++i) s += warp_sums[i];
-    store_count(out, b, s);
-  }
-}
-
 template <int W>
-int launch(int design, const uint32_t* A, const uint32_t* cand, long long* out, int B,
-           cudaStream_t stream) {
-  constexpr int T = 32 * W;
-  if (design == kByBin) design = W <= 2 ? kWarpRows : kBlockRows;
-  if (design == kThreadRows) {
-    tri_thread_rows<<<B, kBlockThreads, 0, stream>>>(A, cand, out, T);
-    return static_cast<int>(cudaGetLastError());
-  }
+int launch(const uint32_t* A, const uint32_t* cand, long long* out, int B, cudaStream_t stream) {
   if constexpr (W <= 2) {
-    if (design == kWarpRows) {
-      tri_warp_rows<W><<<(B + kWarpTiles - 1) / kWarpTiles, kWarpTiles * 32, 0, stream>>>(
-          A, cand, out, B);
-      return static_cast<int>(cudaGetLastError());
-    }
+    tri_warp_rows<W><<<(B + kWarpTiles - 1) / kWarpTiles, kWarpTiles * 32, 0, stream>>>(A, cand,
+                                                                                     out, B);
+  } else {
+    tri_block_rows<W><<<B, kBlockWarps * 32, 0, stream>>>(A, cand, out);
   }
-  if constexpr (W >= 4) {
-    if (design == kBlockRows) {
-      tri_block_rows<W><<<B, kBlockWarps * 32, 0, stream>>>(A, cand, out);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B,) int64, all device
-// pointers; T in {32, 64, 128, 256}.  design 0 runs the bin's design
-// (kWarpRows at T <= 64, kBlockRows above); 1, 2 and 3 pick kThreadRows,
-// kWarpRows (T <= 64) or kBlockRows (T >= 128), for timing them against
-// each other.  Launches on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
-// argument it does not take).
+// pointers; T in {32, 64, 128, 256}.  Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for another T).
 extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void* out, int B,
-                                           int T, int design, void* stream) {
+                                           int T, void* stream) {
   using namespace repro_torch;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const auto* a = static_cast<const uint32_t*>(A);
@@ -254,10 +188,10 @@ extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void
   auto* o = static_cast<long long*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (T) {
-    case 32: return launch<1>(design, a, c, o, B, st);
-    case 64: return launch<2>(design, a, c, o, B, st);
-    case 128: return launch<4>(design, a, c, o, B, st);
-    case 256: return launch<8>(design, a, c, o, B, st);
+    case 32: return launch<1>(a, c, o, B, st);
+    case 64: return launch<2>(a, c, o, B, st);
+    case 128: return launch<4>(a, c, o, B, st);
+    case 256: return launch<8>(a, c, o, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

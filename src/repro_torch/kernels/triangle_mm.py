@@ -25,11 +25,6 @@ launches = 0
 #: calls of the plain version so far
 plain_calls = 0
 
-#: the C entry point's ``design`` argument: 0 runs each bin's own design;
-#: 1 (thread per row, the first port's), 2 (warp per tile, T <= 64) and 3
-#: (block per tile, T >= 128) pin one, for timing them against each other
-BIN_DESIGN, THREAD_ROWS, WARP_ROWS, BLOCK_ROWS = 0, 1, 2, 3
-
 
 def triangle_count_tiles_torch(A: torch.Tensor,
                                cand: torch.Tensor) -> torch.Tensor:
@@ -59,8 +54,7 @@ def triangle_count_tiles(A: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = so.triangle_count_tiles_launch(
-                A.data_ptr(), cand.data_ptr(), out.data_ptr(), B, T,
-                BIN_DESIGN, stream)
+                A.data_ptr(), cand.data_ptr(), out.data_ptr(), B, T, stream)
         if rc:
             raise RuntimeError(f"triangle_count_tiles launch failed: CUDA "
                                f"error {rc}")

@@ -20,6 +20,7 @@ from repro_torch.core.bitops import pack_bits
 from repro_torch.data import graphs
 from repro_torch.kernels import (clique_count, clique_list, intersect, ops,
                                  triangle_mm)
+from torch_cases import structured_triangle_tiles
 
 pytestmark = pytest.mark.gpu
 
@@ -68,20 +69,10 @@ def test_kernels_match_plain_on_card(cuda, T):
     assert after["clique_count_tiles"] == before["clique_count_tiles"] + 6
 
 
-def structured_tiles(case, T, seed=0):
-    """One tile: ``complete`` (K_T under a full cand, C(T, 3) triangles),
-    ``heavy_row`` (vertex 0 adjacent to all over a sparse rest) or
-    ``empty_cand`` (a full A under an empty cand)."""
-    rng = np.random.default_rng(seed + T)
-    if case == "heavy_row":
-        upper = np.triu(rng.random((T, T)) < 0.1, 1)
-        upper[0, 1:] = True
-    else:
-        upper = np.triu(np.ones((T, T), dtype=bool), 1)
-    dense = upper | upper.T
-    cmask = np.full(T, case != "empty_cand")
-    return (torch.from_numpy(pack_bits(dense[None])).view(torch.int32),
-            torch.from_numpy(pack_bits(cmask[None])).view(torch.int32))
+def structured_tiles(case, T):
+    """:func:`torch_cases.structured_triangle_tiles` as int32 tensors."""
+    return tuple(torch.from_numpy(x).view(torch.int32)
+                 for x in structured_triangle_tiles(case, T))
 
 
 def _assert_triangle_and_edge_match(A, cand, pairs):
@@ -123,33 +114,6 @@ def test_triangle_and_edge_kernels_at_batch_sizes(cuda, B, T):
     pairs = torch.from_numpy(np.stack([a, b], 1).astype(np.int32))
     _assert_triangle_and_edge_match(A.to(cuda), cand.to(cuda),
                                     pairs.to(cuda))
-
-
-@pytest.mark.parametrize("T", BINS)
-def test_every_triangle_design_matches_plain(cuda, T):
-    """Each design the C entry point can pin for a bin (the bins keep the
-    fastest), on random tiles with the structured ones among them."""
-    from repro_torch.kernels import _build
-    A, cand = random_tiles(T + 11, 61, T, _DENSITY[T])
-    for i, case in enumerate(("complete", "heavy_row", "empty_cand")):
-        A[20 + i], cand[20 + i] = (x[0] for x in structured_tiles(case, T))
-    A, cand = A.to(cuda), cand.to(cuda)
-    want = triangle_mm.triangle_count_tiles_torch(A, cand)
-    designs = [triangle_mm.BIN_DESIGN, triangle_mm.THREAD_ROWS]
-    designs += [triangle_mm.WARP_ROWS] if T <= 64 else [triangle_mm.BLOCK_ROWS]
-    so = _build.lib()
-    for design in designs:
-        out = torch.full((61,), -1, dtype=torch.int64, device=cuda)
-        assert so.triangle_count_tiles_launch(
-            A.data_ptr(), cand.data_ptr(), out.data_ptr(), 61, T, design,
-            torch.cuda.current_stream().cuda_stream) == 0
-        assert torch.equal(out, want), design
-    out = torch.empty(61, dtype=torch.int64, device=cuda)
-    for design in ([triangle_mm.BLOCK_ROWS] if T <= 64
-                   else [triangle_mm.WARP_ROWS]):
-        assert so.triangle_count_tiles_launch(
-            A.data_ptr(), cand.data_ptr(), out.data_ptr(), 61, T, design,
-            torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.parametrize("T", BINS)
@@ -195,6 +159,17 @@ def test_kernel_wrappers_reject_bad_input_on_card(cuda):
         clique_count.clique_count_tiles(A, cand, clique_count.L_MAX + 1)
     empty = clique_count.clique_count_tiles(A[:0], cand[:0], 4)
     assert empty.shape == (0,) and empty.device.type == "cuda"
+    # an int32 view 4 bytes off a 16-byte boundary: the row loads would
+    # fault on the card, so the wrappers raise first
+    A, cand = (x.to(cuda) for x in random_tiles(2, 4, 128, 0.1))
+    odd = torch.empty(A.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    odd = odd.view(A.shape).copy_(A)
+    with pytest.raises(ValueError):
+        triangle_mm.triangle_count_tiles(odd, cand)
+    with pytest.raises(ValueError):
+        clique_count.clique_count_tiles(odd, cand, 4)
+    with pytest.raises(ValueError):
+        clique_count.clique_count_items(odd, cand, 4)
 
 
 @pytest.mark.parametrize("k", [3, 4, 5, 6, 7])
@@ -276,6 +251,14 @@ def test_list_wrappers_reject_bad_input_on_card(cuda):
     odd = torch.zeros(9, dtype=torch.int32, device=cuda)[1:].view(4, 2)
     with pytest.raises(ValueError):               # pairs not 8-byte aligned
         intersect.edge_candidates(A, odd)
+    A, cand = (x.to(cuda) for x in cliquey_tiles(2, 4, 64))
+    off = torch.empty(A.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    off = off.view(A.shape).copy_(A)              # A not 8-byte aligned
+    with pytest.raises(ValueError):
+        clique_list.clique_list_tiles(off, cand, 4, 8)
+    with pytest.raises(ValueError):
+        intersect.edge_candidates(off, torch.tensor(
+            [[0, 1]] * 4, dtype=torch.int32, device=cuda))
     buf, cnt, ovf = clique_list.clique_list_tiles(A[:0], cand[:0], 4, 8)
     assert buf.shape == (0, 8, 4) and cnt.shape == ovf.shape == (0,)
 

@@ -17,6 +17,7 @@ from repro.core.bitops import pack_bits, pack_mask, pack_rows
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import clique_count, ops, ref, triangle_mm
+from torch_cases import structured_triangle_tiles
 
 BINS = (32, 64, 128, 256)
 
@@ -94,23 +95,6 @@ def test_triangle_plain_matches_reference(T):
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jref.triangle_count_tiles_ref(
             jnp.asarray(A), jnp.asarray(cand))).astype(np.int64))
-
-
-def structured_triangle_tiles(case, T, seed=0):
-    """One tile of a kind a triangle kernel must get right at every bin:
-    ``complete`` (K_T under a full cand: C(T, 3) triangles, 2,763,520 at
-    T = 256), ``heavy_row`` (vertex 0 adjacent to all over a sparse rest,
-    the skew that a thread per row serialises) and ``empty_cand`` (a full
-    A under an empty cand: 0)."""
-    rng = np.random.default_rng(seed + T)
-    if case == "heavy_row":
-        upper = np.triu(rng.random((T, T)) < 0.1, 1)
-        upper[0, 1:] = True
-    else:
-        upper = np.triu(np.ones((T, T), dtype=bool), 1)
-    dense = upper | upper.T
-    cmask = np.full(T, case != "empty_cand")
-    return pack_bits(dense[None]), pack_bits(cmask[None])
 
 
 @pytest.mark.parametrize("T", BINS)
@@ -237,6 +221,23 @@ def test_wrappers_check_inputs(wrapper):
         fn(A.transpose(0, 1).contiguous().transpose(0, 1), cand)
     with pytest.raises(ValueError):               # (T, W) without batch
         fn(A[0], cand)
+
+
+@pytest.mark.parametrize("T", [64, 128])
+def test_offset_cpu_view_takes_plain_version(T):
+    """A CPU view 4 bytes off a 16-byte boundary is refused on the card
+    (the kernels load whole rows) but not here: the plain version reads
+    it like any tensor, and counts as the reference does."""
+    A_u32, cand_u32 = random_tiles(T + 3, 4, T, _DENSITY[T])
+    A, cand = port(A_u32, cand_u32)
+    off = torch.empty(A.numel() + 1, dtype=torch.int32)[1:].view(A.shape)
+    off.copy_(A)
+    assert off.data_ptr() % 16
+    ops.reset_counts()
+    got = triangle_mm.triangle_count_tiles(off, cand)
+    assert ops.plain_counts()["triangle_count_tiles"] == 1
+    np.testing.assert_array_equal(got.numpy(),
+                                  jax_count(A_u32, cand_u32, 3, "mxu"))
 
 
 def test_cpu_tensor_takes_plain_version_not_kernel():
