@@ -19,9 +19,18 @@ kernel counters set to 0 just before it and read just after:
   overflowed tiles relisted on the host);
 * edge-branch candidates -- ``repro_torch.kernels.ops.edge_candidates``
   -- on every packed batch of the k = 5 listing, one edge of each tile;
+* multi-lane dispatch (``[dispatch]``, ``repro_torch.runtime.dispatch``)
+  on the warm plans: counting k = 7 on the scale-15 graph on one lane and
+  on two lanes (two CUDA streams) of the card, k = 5 on the scale-12 graph
+  split by rows over two lanes (``mesh=``) and k = 6 by offline LPT
+  (``dispatch_scheduled``) over two lanes, and listing k = 5 on the
+  scale-12 graph through the ``ListDispatcher`` on one lane (exact sizing)
+  and on two lanes (speculative capacity), against the same counts and
+  digests;
 
 and finally runs the command-line launcher with ``--verify``, counting
-and listing.  Any failure raises and exits non-zero.
+(through the dispatcher, its default) and listing.  Any failure raises and
+exits non-zero.
 
 Kernel times: ``device_ms`` is the device time of one call, from 100
 calls of the bare C entry point (with the wrapper's zero fills) captured in
@@ -612,6 +621,236 @@ def batches_per_bin(plan, k: int):
             {T: int(per_T[i]) for i, T in enumerate(BINS)})
 
 
+def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs) -> dict:
+    """``[dispatch]``: the main path's queries through the multi-lane
+    dispatcher, each with the kernel counters set to 0 just before it and
+    read just after.  Each run must give the expected count (or rows and
+    digest), launch its kernels and no plain version, and, on two lanes,
+    place tiles on both.  Returns every run's numbers."""
+    import numpy as np
+    from repro_torch.core import ebbkc, engine_torch, listing, pipeline
+    from repro_torch.core.engine_np import Stats
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import dispatch
+    one, two = ["cuda:0"], ["cuda:0", "cuda:0"]
+    runs = {}
+
+    def record(name, kernels, wall, stats, stage, inline_s, **extra):
+        launches = ops.launch_counts()
+        plain = ops.plain_counts()
+        # the count dispatcher accounts the overlap; the ListDispatcher
+        # (as the reference's) does not
+        counting = "list" not in name
+        overlap = stats.staging_overlap_s if counting else None
+        run = dict(wall_s=wall, staging_overlap_s=overlap,
+                   overlap_share=overlap / wall if counting else None,
+                   device_s=stage.get("device", 0.0),
+                   tiles_per_lane=dict(stats.device_tiles),
+                   launches=launches, inline_wall_s=inline_s,
+                   kernel_compile_s=stats.kernel_compile_s, **extra)
+        runs[name] = run
+        inline = (f"{inline_s:.2f} s" if inline_s is not None
+                  else "not run inline")
+        overlap_txt = (f"{overlap:.2f} s ({100 * overlap / wall:.1f}% of "
+                       f"wall)" if counting else "not accounted (listing)")
+        log(f"[dispatch] {name}: wall {wall:.2f} s (inline path in this "
+            f"call: {inline}), staging_overlap {overlap_txt}, device stage "
+            f"{run['device_s']:.2f} s, tiles per lane {run['tiles_per_lane']}"
+            f", launches {launches}"
+            + "".join(f", {k} {v}" for k, v in extra.items()))
+        if sum(plain.values()):
+            fail(f"dispatch {name}: a plain version ran: {plain}")
+        for kernel in kernels:
+            if launches[kernel] == 0:
+                fail(f"dispatch {name}: {kernel} never launched: {launches}")
+        if "2 lanes" in name and not (
+                len(stats.device_tiles) == 2
+                and min(stats.device_tiles.values()) > 0):
+            fail(f"dispatch {name}: a lane took no tile: "
+                 f"{stats.device_tiles}")
+
+    def count(name, graph, graph_plan, k, lanes, inline_s):
+        stage = {}
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        res = ebbkc.count(graph, k, plan=graph_plan, engine_kwargs=dict(
+            devices=lanes, stage_times=stage))
+        wall = time.perf_counter() - t0
+        record(name, [kernel_of(k)], wall, res.stats, stage, inline_s,
+               count=res.count)
+        return res.count
+
+    def kernel_of(k):
+        return "triangle_count_tiles" if k == 5 else "clique_count_tiles"
+
+    for lanes, tag in ((one, "1 lane"), (two, "2 lanes")):
+        got = count(f"count k=7 rmat15 {tag}", g, plan, 7, lanes,
+                    main_runs[7]["wall_s"])
+        if got != EXPECTED[7]:
+            fail(f"dispatch k=7 on {tag} counted {got}, expected "
+                 f"{EXPECTED[7]}")
+
+    # k = 5 on the scale-12 graph, each batch split by rows over two lanes
+    stats, stage = Stats(), {}
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    disp = dispatch.Dispatcher(3, mesh=two, stats=stats, stage_times=stage)
+    stream = pipeline.stream_batches(lplan, 5, pack_workers=None,
+                                     stats=stats)
+    spilled = []
+    try:
+        disp.consume(stream, on_spill=lambda t: spilled.append(
+            engine_torch.count_spilled(t, "hybrid", 3, stats, 3, True)))
+        got = disp.finish() + sum(spilled)
+    finally:
+        stream.close()
+    record("count k=5 rmat12 mesh 2 lanes", [kernel_of(5)],
+           time.perf_counter() - t0, stats, stage, None, count=got)
+    if got != EXPECTED_LIST[5][0]:
+        fail(f"dispatch mesh k=5 counted {got}, expected "
+             f"{EXPECTED_LIST[5][0]}")
+
+    # k = 6 on the scale-12 graph, offline LPT bins over two lanes
+    stats, stage = Stats(), {}
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    items = list(pipeline.stream_batches(lplan, 6, pack_workers=None))
+    batches = [b for b in items if isinstance(b, pipeline.TileBatch)]
+    spill = sum(engine_torch.count_spilled(t, "hybrid", 4, stats, 3, True)
+                for t in items if not isinstance(t, pipeline.TileBatch))
+    got, info = dispatch.dispatch_scheduled(batches, 4, two, stats=stats,
+                                            stage_times=stage)
+    got += spill
+    record("count k=6 rmat12 offline LPT 2 lanes", [kernel_of(6)],
+           time.perf_counter() - t0, stats, stage, None, count=got,
+           balance=info["max_over_mean"])
+    if got != EXPECTED_LIST[6][0]:
+        fail(f"dispatch offline LPT k=6 counted {got}, expected "
+             f"{EXPECTED_LIST[6][0]}")
+
+    # listing k = 5 on the scale-12 graph, rows hashed by the sink
+    for lanes, tag, capacity in ((one, "1 lane", "sized"),
+                                 (two, "2 lanes", "speculative")):
+        digest, nrows = hashlib.sha256(), [0]
+
+        def hash_rows(chunk):
+            digest.update(np.ascontiguousarray(chunk, dtype="<i8"))
+            nrows[0] += chunk.shape[0]
+        stage = {}
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        res = listing.stream_cliques(lplan, 5, listing.CallbackSink(
+            hash_rows), devices=lanes, capacity=capacity, stage_times=stage)
+        wall = time.perf_counter() - t0
+        kernels = ["clique_list_tiles"] + (
+            [kernel_of(5)] if capacity == "sized" else [])
+        record(f"list k=5 rmat12 {capacity} {tag}", kernels, wall,
+               res.stats, stage, list_runs["k=5 warm"]["wall_s"],
+               rows=nrows[0], emit_retries=res.stats.emit_retries,
+               decode_s=stage.get("decode", 0.0),
+               emit_s=stage.get("emit", 0.0))
+        if (nrows[0], digest.hexdigest()) != EXPECTED_LIST[5]:
+            fail(f"dispatch listing k=5 ({capacity}, {tag}) gave {nrows[0]} "
+                 f"rows, sha256 {digest.hexdigest()}; expected "
+                 f"{EXPECTED_LIST[5]}")
+    runs["lane_concurrency"] = lane_concurrency(plan)
+    runs["device_busy"] = device_busy(
+        "count k=7 rmat15 2 lanes",
+        lambda: ebbkc.count(g, 7, plan=plan,
+                            engine_kwargs=dict(devices=two)).count)
+    if runs["device_busy"]["result"] != EXPECTED[7]:
+        fail("dispatch k=7 under the profiler counted "
+             f"{runs['device_busy']['result']}, expected {EXPECTED[7]}")
+    return runs
+
+
+def device_busy(name: str, query) -> dict:
+    """The device's busy share of one dispatched query: the query runs
+    once more under ``torch.profiler`` (CUDA activity only), and the union
+    of its device intervals (kernels, copies, fills, on every stream) is
+    set against the query's wall time.  The sum of the intervals over
+    their union says how much the lanes' work overlapped."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = query()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, total_us, end = 0.0, 0.0, float("-inf")
+    for a, b in spans:
+        total_us += b - a
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    out = dict(result=result, wall_s=wall, device_events=len(spans),
+               busy_s=busy_us / 1e6, summed_s=total_us / 1e6,
+               busy_share=busy_us / 1e6 / wall if spans else None)
+    if spans:
+        share = out["busy_share"]
+        log(f"[dispatch] device busy, {name} under the profiler: wall "
+            f"{wall:.2f} s, {len(spans)} device events, "
+            f"busy {out['busy_s']:.3f} s ({100 * share:.2f}% of wall; idle "
+            f"{100 - 100 * share:.2f}%), summed {out['summed_s']:.3f} s "
+            f"({out['summed_s'] / out['busy_s']:.2f}x the busy time)")
+    else:
+        log("[dispatch] device busy share not measured: the profiler saw "
+            "no device events")
+    return out
+
+
+def lane_concurrency(plan, reps: int = 40) -> dict:
+    """What two lanes on one card do to the DFS count kernel's device
+    time: ``reps`` launches of a main-path k = 7 sample batch on one
+    stream, against the same launches alternated over two streams, each
+    span between two events (the side streams wait on the first and the
+    launching stream on the side streams' last); one, two, two, one.
+    These launches come after the counted runs and are not part of any."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def span(A, cand, streams) -> float:
+        cur = torch.cuda.current_stream()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(cur)
+        for st in streams:
+            st.wait_event(start)
+        for i in range(reps):
+            with torch.cuda.stream(streams[i % len(streams)]):
+                ops.count_tiles(A, cand, 5)
+        for st in streams:
+            done = torch.cuda.Event()
+            done.record(st)
+            cur.wait_event(done)
+        end.record(cur)
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    out = {}
+    for T in (32, 64, 128):
+        for which, A, cand, _ in main_path_batches(plan, 7, T):
+            if which != "sample":
+                continue
+            streams = [torch.cuda.Stream() for _ in range(2)]
+            span(A, cand, streams)  # warm-up
+            times = {"one": [], "two": []}
+            for lanes in ("one", "two", "two", "one"):
+                times[lanes].append(span(A, cand, streams[:1] if lanes ==
+                                         "one" else streams))
+            one, two = min(times["one"]), min(times["two"])
+            out[T] = dict(reps=reps, one_stream_ms=times["one"],
+                          two_streams_ms=times["two"], speedup=one / two)
+            log(f"[dispatch] lane concurrency k=7 T={T} sample (B="
+                f"{A.shape[0]}): {reps} count launches on one stream "
+                f"{times['one']} ms, alternated over two streams "
+                f"{times['two']} ms: two lanes {one / two:.2f}x one")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", metavar="PATH", default=None,
@@ -916,6 +1155,9 @@ def main(argv=None) -> int:
                 real[("list", T, k - 2, which)] = list_case(
                     rows, errs, A, cand, k - 2, cap, tag, reps=20)
 
+    # -- the multi-lane dispatcher ------------------------------------------
+    dispatch_runs = dispatch_phase(g, plan, lg, lplan, main_runs, list_runs)
+
     # -- phase 5: the launcher ---------------------------------------------
     ops.reset_counts()
     buf = io.StringIO()
@@ -949,6 +1191,22 @@ def main(argv=None) -> int:
                  "list kernel")
         log(f"[cli] {spec} k={k} --list --verify: "
             f"{time.perf_counter() - t0:.1f} s")
+    ops.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = clique.main(["--graph", "rmat:10", "--k", "5", "--devices", "1",
+                          "--offline-lpt", "--verify"])
+    out = buf.getvalue()
+    log("[cli] " + " | ".join(out.strip().splitlines()))
+    if rc != 0 or "match=True" not in out or "balance" not in out:
+        fail("launcher --devices 1 --offline-lpt --verify did not match the "
+             "host engine")
+    if ops.launch_counts()["triangle_count_tiles"] == 0:
+        fail("launcher --offline-lpt at k=5 never launched the triangle "
+             "kernel")
+    log(f"[cli] rmat:10 k=5 --devices 1 --offline-lpt --verify: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- summary -----------------------------------------------------------
     # each kernel's row: the bin with most launches on its path; launches
@@ -992,7 +1250,8 @@ def main(argv=None) -> int:
              "cuda": torch.version.cuda, "build_s": build_s,
              "one_call_build_s": one_call_s, "cases": rows,
              "main": {str(k): v for k, v in main_runs.items()},
-             "list_main": list_runs, "launches": count_launches,
+             "list_main": list_runs, "dispatch": dispatch_runs,
+             "launches": count_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,
              "ptxas": ptxas,

@@ -43,6 +43,9 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
 
     ``device`` applies to ``backend="torch"``: ``None`` means the CUDA
     device (and raises without one); pass ``"cpu"`` to run there.
+    ``engine_kwargs`` forwards knobs to ``engine_torch.count``, among them
+    ``devices=`` (lanes of the multi-lane dispatcher, in place of
+    ``device``), ``async_staging=`` and ``max_inflight=``.
     ``backend="host"`` runs the python-int recursion and takes no device.
     """
     if k < 1:
@@ -95,7 +98,8 @@ def list_cliques(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
     without one), the CPU only when asked -- and never truncates on
     emit-buffer overflow (overflowed tiles relist on the host,
     ``stats.overflowed_tiles``); ``engine_kwargs`` forwards knobs such as
-    ``capacity=`` or ``bins=`` to ``listing.stream_cliques``.
+    ``capacity=``, ``bins=``, ``devices=``, ``async_staging=`` or
+    ``max_inflight=`` to ``listing.stream_cliques``.
     ``backend="host"`` runs the python-int recursion and takes no device.
     """
     if k < 1:

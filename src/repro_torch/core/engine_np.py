@@ -16,13 +16,13 @@ bin here, and the launcher's ``--verify`` checks against it.
                      spilled tiles with it.
 
 All support early termination into :mod:`repro_torch.core.plex`.  Still
-to be ported: ``count_rec_V`` (VBBkC baseline) and ``Stats.merge``
-(multi-device dispatch slice).
+to be ported: ``count_rec_V`` (VBBkC baseline), and the ``Stats`` fields
+of the resilience (``retries``, ``demotions``), delta and tune layers.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from .bitops import bits, mask_gt, popcount
 from . import plex
@@ -38,6 +38,24 @@ class Stats:
     spilled_tiles: int = 0   # oversize tiles routed device -> host recursion
     # sizes of the spilled tiles (one entry per spill)
     spill_sizes: List[int] = dataclasses.field(default_factory=list)
+    # multi-lane dispatch (repro_torch.runtime.dispatch): lane index ->
+    # tiles counted there / the reference's dense-matmul flop model of
+    # them / packed bytes staged there ((B,T,W) adjacency plus (B,W)
+    # candidate masks)
+    device_tiles: Dict[int, int] = dataclasses.field(default_factory=dict)
+    device_flops: Dict[int, int] = dataclasses.field(default_factory=dict)
+    device_bytes: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # wall seconds the host spent NOT blocked while device work was in
+    # flight -- an upper bound on the device time hidden by double-buffered
+    # staging; 0.0 under synchronous staging
+    staging_overlap_s: float = 0.0
+    # speculative emit capacity (ListDispatcher, capacity="speculative"):
+    # batches whose capacity guess proved too small and were listed once
+    # more on the device at the exact size
+    emit_retries: int = 0
+    # wall seconds the dispatchers spent building the CUDA kernel library
+    # at first use (0.0 once it is loaded in this process)
+    kernel_compile_s: float = 0.0
     # which engine served the query: "host", or "torch:<device type>"
     backend: str = ""
     # front end (repro_torch.core.pipeline.stream_batches): pack-pool size
@@ -59,6 +77,75 @@ class Stats:
     # cold-path build time (0.0 on warm queries)
     plan_cache_hit: bool = False
     plan_build_s: float = 0.0
+
+    # How each field combines across Stats objects (Stats.merge), as in the
+    # reference:
+    #   sum  -- additive accumulator
+    #   max  -- peak/high-water value
+    #   or   -- sticky boolean flag
+    #   dict -- per-key additive map (lane index -> amount)
+    #   list -- concatenated observations
+    #   mean -- occupancy-style ratio; merge keeps the max as the
+    #           conservative summary
+    #   info -- identity metadata, kept from self (or taken from other
+    #           when self is unset)
+    _MERGE_KINDS = {
+        "branches": "sum",
+        "et_hits": "sum",
+        "pruned_size": "sum",
+        "pruned_color": "sum",
+        "peak_graph": "max",
+        "spilled_tiles": "sum",
+        "spill_sizes": "list",
+        "device_tiles": "dict",
+        "device_flops": "dict",
+        "device_bytes": "dict",
+        "staging_overlap_s": "sum",
+        "emit_retries": "sum",
+        "kernel_compile_s": "sum",
+        "backend": "info",
+        "pack_workers": "max",
+        "frontend_s": "sum",
+        "pack_queue_occupancy": "mean",
+        "pack_queue_peak": "max",
+        "emitted_cliques": "sum",
+        "overflowed_tiles": "sum",
+        "sink_bytes": "sum",
+        "plan_cache_hit": "or",
+        "plan_build_s": "sum",
+    }
+
+    def merge(self, other: "Stats") -> "Stats":
+        """Fold ``other`` into ``self`` (in place) and return ``self``.
+
+        The single merge path for combining per-lane / per-request
+        ``Stats`` (the dispatchers' accounting goes through it).  Every
+        dataclass field must be classified in ``_MERGE_KINDS``: a field
+        without a rule raises here.
+        """
+        for f in dataclasses.fields(self):
+            kind = self._MERGE_KINDS.get(f.name)
+            if kind is None:
+                raise TypeError(
+                    f"Stats.{f.name} has no merge rule; add it to "
+                    "Stats._MERGE_KINDS")
+            mine = getattr(self, f.name)
+            theirs = getattr(other, f.name)
+            if kind == "sum":
+                setattr(self, f.name, mine + theirs)
+            elif kind in ("max", "mean"):
+                setattr(self, f.name, max(mine, theirs))
+            elif kind == "or":
+                setattr(self, f.name, bool(mine or theirs))
+            elif kind == "dict":
+                for k, v in theirs.items():
+                    mine[k] = mine.get(k, 0) + v
+            elif kind == "list":
+                mine.extend(theirs)
+            elif kind == "info":
+                if not mine and theirs:
+                    setattr(self, f.name, theirs)
+        return self
 
 
 def _count_edges(rows: Sequence[int], cand: int) -> int:

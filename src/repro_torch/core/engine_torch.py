@@ -18,10 +18,11 @@ Unlike the reference, batches are not padded to a power of two
 (``bucket_rows``): that padding exists so XLA reuses compiled executables,
 and an eager CUDA launch gains nothing from it.  The entry point runs on
 the CUDA device unless the caller passes ``device="cpu"``; there is no
-silent fallback.  Still to be ported: multi-device dispatch
-(``Dispatcher``, ``devices=``) and the tuned geometry of ``repro.tune``
-(this engine takes the historical defaults: ``batch_size=256``, bins
-``(32, 64, 128, 256)``, ``pack_workers`` from ``default_pack_workers()``).
+silent fallback.  ``devices=`` routes the batches through the multi-lane
+dispatcher (:mod:`repro_torch.runtime.dispatch`).  Still to be ported: the
+tuned geometry of ``repro.tune`` (this engine takes the historical
+defaults: ``batch_size=256``, bins ``(32, 64, 128, 256)``,
+``pack_workers`` from ``default_pack_workers()``).
 """
 from __future__ import annotations
 
@@ -165,7 +166,10 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
           bins: Optional[Sequence[int]] = None,
           stage_times: Optional[Dict[str, float]] = None,
           pack_workers: Optional[int] = None,
-          device=None):
+          device=None,
+          devices=None,
+          async_staging: bool = True,
+          max_inflight: int = 2):
     """Full-graph k-clique count on ``device`` (default: the CUDA device).
 
     Streams capacity-batched packed tiles from
@@ -178,26 +182,57 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
     wall-clock seconds, and on a CUDA device the ``count_tiles`` device
     seconds per bin (see :func:`count_packed`); with it given, each batch
     synchronizes the device so its time is billed to "device".
+
+    ``devices`` routes the packed batches through the multi-lane
+    dispatcher (:class:`repro_torch.runtime.dispatch.Dispatcher`) instead
+    of ``device``: an int n / ``"all"`` / a lane list (repeats allowed,
+    ``["cpu"] * n`` included), with double-buffered staging up to
+    ``max_inflight`` batches a lane (``async_staging=False`` forces
+    synchronous staging).  ``devices=None`` keeps the single-device inline
+    path.  Counts are identical either way -- partials are combined
+    exactly on the host.
     """
     from .ebbkc import Result
-    dev = resolve_device(device)
     stats = Stats()
-    stats.backend = f"torch:{dev.type}"
+    if devices is None:
+        dev = resolve_device(device)
+        stats.backend = f"torch:{dev.type}"
     if k == 1:
         return Result(g.n, stats)
     if k == 2:
         return Result(g.m, stats)
-    if plan is None:
-        plan = pipeline.cached_plan(g, order=order, stats=stats)
     total = 0
     ntiles = 0
     max_tile = 0
     l = k - 2
     et = et_route and et_t >= 2
+    if devices is not None:
+        # lanes resolve (and raise without CUDA) before the plan is built
+        from ..runtime.dispatch import Dispatcher
+        disp = Dispatcher(l, devices, et=et, method=method,
+                          async_staging=async_staging,
+                          max_inflight=max_inflight, stats=stats,
+                          stage_times=stage_times)
+    if plan is None:
+        plan = pipeline.cached_plan(g, order=order, stats=stats)
     stream = pipeline.stream_batches(
         plan, k, order=order, use_rule2=use_rule2,
         batch_size=batch_size, bins=bins, timings=stage_times,
         pack_workers=pack_workers, stats=stats)
+    if devices is not None:
+        spill_total = 0
+
+        def on_spill(tile: tiles_mod.Tile) -> None:
+            nonlocal spill_total
+            spill_total += count_spilled(tile, order, l, stats, et_t,
+                                         use_rule2)
+
+        try:
+            ntiles, max_tile = disp.consume(stream, on_spill=on_spill)
+            total = spill_total + disp.finish()
+        finally:
+            stream.close()  # stops the pack workers on error too
+        return Result(total, stats, ntiles, max_tile)
     try:
         for item in stream:
             if isinstance(item, tiles_mod.Tile):

@@ -22,10 +22,11 @@ Exactness invariants (as in the reference):
   batch; each row sorted ascending), the same rows in the same order as
   the reference's ``stream_cliques``.
 
-Still to be ported: multi-device dispatch (``devices=``) and the
-dispatcher's ``capacity="speculative"`` mode (both raise
-``NotImplementedError``), the autotuned geometry (this engine takes the
-historical defaults), and the trace, fault-retry and tune hooks.
+``devices=`` routes the batches through the multi-lane
+:class:`repro_torch.runtime.dispatch.ListDispatcher`, which adds the
+``capacity="speculative"`` mode.  Still to be ported: the autotuned
+geometry (this engine takes the historical defaults), and the trace,
+fault-retry and tune hooks.
 """
 from __future__ import annotations
 
@@ -360,6 +361,8 @@ def stream_cliques(
     capacity=None,
     max_capacity: int = MAX_CAPACITY,
     devices=None,
+    async_staging: bool = True,
+    max_inflight: int = 2,
     stage_times: Optional[dict] = None,
     pack_workers: Optional[int] = None,
     device=None,
@@ -380,34 +383,72 @@ def stream_cliques(
     ``pack_workers=pipeline.default_pack_workers()``; capacities round up
     to a power of two (the reference's default ``cap_policy``), as
     :func:`capacity_for` rounds them.  A Graph ``source`` goes through the
-    keyed in-process plan cache.  ``devices=`` and
-    ``capacity="speculative"`` belong to the multi-device dispatcher,
-    which is not ported yet: they raise ``NotImplementedError``.
-    ``stage_times`` accumulates the stages of :func:`list_batch` plus the
-    front end's ``"extract"`` / ``"pack"`` and the sink's ``"emit"``.
+    keyed in-process plan cache.  ``stage_times`` accumulates the stages
+    of :func:`list_batch` plus the front end's ``"extract"`` / ``"pack"``
+    and the sink's ``"emit"``.
+
+    ``devices`` routes batches through
+    :class:`repro_torch.runtime.dispatch.ListDispatcher` instead of
+    ``device`` (lane placement, double-buffered staging up to
+    ``max_inflight`` batches a lane, FIFO harvest and one decode worker),
+    whose capacity modes are ``None`` / ``"sized"`` (exact, by a count
+    pass), ``"speculative"`` (a per-width capacity ratchet with one device
+    retry) or an int.  On the inline path both string modes fall back to
+    the exact count-pass sizing.  Exact and speculative sizing give the
+    same rows in the same order; a pinned int capacity relists the tiles
+    that overflow it on the host, in the host recursion's order, the same
+    on both paths.
     """
     from .engine_torch import resolve_device
     if k < 3:
         raise ValueError("stream_cliques requires k >= 3")
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= (multi-device dispatch) is not ported yet; leave it "
-            "None to list on one device")
-    if capacity == "speculative":
-        raise NotImplementedError(
-            "capacity='speculative' belongs to the multi-device "
-            "dispatcher, which is not ported yet")
-    dev = resolve_device(device)
+    if isinstance(capacity, str):
+        if capacity not in ("sized", "speculative"):
+            raise ValueError(f"capacity must be None, 'sized', "
+                             f"'speculative', or an int, got {capacity!r}")
+        if devices is None:
+            # dispatcher modes; the inline path's exact count-pass sizing
+            # covers both aliases
+            capacity = None
     stats = Stats()
-    stats.backend = f"torch:{dev.type}"
     res = ListResult(stats)
     l = k - 2
+    if devices is None:
+        dev = resolve_device(device)
+        stats.backend = f"torch:{dev.type}"
+    else:
+        # lanes resolve (and raise without CUDA) before the plan is built
+        from ..runtime.dispatch import ListDispatcher
+        disp = ListDispatcher(
+            l, devices, sink=sink, stats=stats, capacity=capacity,
+            max_capacity=max_capacity, et_t=et_t,
+            async_staging=async_staging, max_inflight=max_inflight,
+            stage_times=stage_times)
     if not isinstance(source, pipeline.PipelinePlan):
         source = pipeline.cached_plan(source, order=order, stats=stats)
     stream = pipeline.stream_batches(
         source, k, order=order, use_rule2=use_rule2, batch_size=batch_size,
         bins=bins, timings=stage_times, pack_workers=pack_workers,
         stats=stats)
+    if devices is not None:
+
+        def on_spill(tile: tiles_mod.Tile) -> None:
+            # host listing runs here (consumer thread); the emit goes
+            # through the dispatcher's decode worker so the rows keep
+            # their FIFO position relative to batch decodes
+            disp.emit_rows(list_spilled(tile, l, stats, et_t=et_t))
+
+        try:
+            res.tiles, res.max_tile = disp.consume(stream, on_spill=on_spill)
+            disp.finish()
+        finally:
+            # error path: stop the decode worker from emitting into the
+            # caller's sink and cancel queued pack work; both are no-ops
+            # after a clean finish
+            disp.close()
+            stream.close()
+        stats.sink_bytes += sink.bytes_written
+        return res
     try:
         for item in stream:
             if sink.full:

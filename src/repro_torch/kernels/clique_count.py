@@ -27,9 +27,9 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
-from .common import (MASK32, WORD, check_tiles, edges_within, gt_masks,
-                     popcount_words, triangles_within_chunked, unpack_bits,
-                     widen)
+from .common import (MASK32, WORD, check_tiles, count_call, edges_within,
+                     gt_masks, popcount_words, triangles_within_chunked,
+                     unpack_bits, widen)
 
 #: largest l the CUDA kernel's stack holds (its kLMax)
 L_MAX = 16
@@ -57,8 +57,7 @@ def clique_count_tiles_torch(A: torch.Tensor, cand: torch.Tensor, l: int,
     per-tile DFS steps (``"steps"``) and the induced edges the closes
     examined (``"close_edges"``): the data-dependent work the kernel does.
     """
-    global plain_calls
-    plain_calls += 1
+    count_call(__name__, "plain_calls")
     B, T, W = check_tiles(A, cand)
     _check_l(l)
     return _count(widen(A), widen(cand), l, work) & MASK32
@@ -157,7 +156,6 @@ def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
                        l: int) -> torch.Tensor:
     """(B, T, W) int32, (B, W) int32 -> (B,) int64 per-tile l-clique counts
     (uint32 values, wrapping mod 2**32 as the reference does)."""
-    global launches
     B, T, _ = check_tiles(A, cand)
     _check_l(l)
     if A.device.type == "cpu":
@@ -177,7 +175,7 @@ def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
         if rc:
             raise RuntimeError(f"clique_count_tiles launch failed: CUDA "
                                f"error {rc}")
-        launches += 1
+        count_call(__name__, "launches")
     return out[:B].to(torch.int64) & MASK32
 
 
@@ -194,7 +192,6 @@ def clique_count_items(A: torch.Tensor, cand: torch.Tensor,
                        l: int) -> torch.Tensor:
     """(B, T, W) int32, (B, W) int32 -> (B, T) int64: the l-cliques of each
     tile per lowest vertex (see :func:`clique_count_items_torch`)."""
-    global item_launches
     B, T, _ = check_tiles(A, cand)
     _check_l(l)
     if A.device.type == "cpu":
@@ -214,5 +211,5 @@ def clique_count_items(A: torch.Tensor, cand: torch.Tensor,
         if rc:
             raise RuntimeError(f"clique_count_items launch failed: CUDA "
                                f"error {rc}")
-        item_launches += 1
+        count_call(__name__, "item_launches")
     return per_v

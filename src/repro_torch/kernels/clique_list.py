@@ -33,9 +33,9 @@ import torch
 
 from . import _build
 from .clique_count import item_list
-from .common import (MASK32, WORD, check_tiles, emit_edges, emit_frontier,
-                     emit_triangles, gt_masks, member_rows, popcount_words,
-                     unpack_bits, widen)
+from .common import (MASK32, WORD, check_tiles, count_call, emit_edges,
+                     emit_frontier, emit_triangles, gt_masks, member_rows,
+                     popcount_words, unpack_bits, widen)
 
 #: largest l the CUDA kernel's stack holds (its kLMax)
 L_MAX = 16
@@ -70,8 +70,7 @@ def clique_list_tiles_torch(A: torch.Tensor, cand: torch.Tensor, l: int,
     (``"close_verts"``) and the induced edges the triangle close examined
     (``"close_edges"``): the data-dependent work the kernel does.
     """
-    global plain_calls
-    plain_calls += 1
+    count_call(__name__, "plain_calls")
     B, T, W = check_tiles(A, cand)
     _check(l, capacity)
     dev = A.device
@@ -156,7 +155,6 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
     ``launches`` counts one per call that reaches the card, though the call
     runs four device passes.
     """
-    global launches
     B, T, _ = check_tiles(A, cand)
     _check(l, capacity)
     if A.device.type == "cpu":
@@ -182,5 +180,5 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
         if rc:
             raise RuntimeError(f"clique_list_tiles launch failed: CUDA "
                                f"error {rc}")
-        launches += 1
+        count_call(__name__, "launches")
     return buf, cnt.to(torch.int64) & MASK32, ovf.to(torch.int64)

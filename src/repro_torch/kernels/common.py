@@ -7,12 +7,14 @@ candidate-induced subgraph, on packed words widened to int64 (see
 dimensions, and they are the arithmetic that the CUDA kernels in ``csrc/``
 reproduce.  Also here: the fixed-capacity emit scatters of the listing
 kernel (``emit_frontier``, ``emit_edges``, ``emit_triangles``), the input
-checks every kernel wrapper shares, and the host Pascal table of the
-closed-form 2-plex count.
+checks every kernel wrapper shares, the lock its launch counters take, and
+the host Pascal table of the closed-form 2-plex count.
 """
 
 from __future__ import annotations
 
+import sys
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -31,6 +33,19 @@ from ..core.bitops import (  # noqa: F401  (re-exported kernel API)
 
 #: tile widths the kernels take (the pipeline's bins)
 TILE_WIDTHS = (32, 64, 128, 256)
+
+#: guards every kernel module's launch and plain-call counters: the
+#: listing dispatcher's decode worker launches kernels beside the thread
+#: that submits, and ``+= 1`` on a module global is not atomic
+COUNTER_LOCK = threading.Lock()
+
+
+def count_call(module: str, counter: str) -> None:
+    """Add one to the counter ``counter`` of the kernel module named
+    ``module`` (its ``__name__``), under :data:`COUNTER_LOCK`."""
+    mod = sys.modules[module]
+    with COUNTER_LOCK:
+        setattr(mod, counter, getattr(mod, counter) + 1)
 
 
 def member_rows(A: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:

@@ -20,8 +20,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .common import (MASK32, check_adjacency, gt_masks, popcount_words,
-                     to_words, widen)
+from .common import (MASK32, check_adjacency, count_call, gt_masks,
+                     popcount_words, to_words, widen)
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
@@ -50,8 +50,7 @@ def edge_candidates_torch(A: torch.Tensor, pairs: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version: (B,T,W) int32, (B,2) int32 -> (cand (B,W)
     int32 words, n (B,) int64 holding uint32 values)."""
-    global plain_calls
-    plain_calls += 1
+    count_call(__name__, "plain_calls")
     B, T, W = _check_pairs(A, pairs)
     A64 = widen(A)
     p = pairs.to(torch.int64)
@@ -64,7 +63,6 @@ def edge_candidates(A: torch.Tensor, pairs: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, T, W) int32, (B, 2) int32 local ids (a < b) -> (cand (B, W)
     int32 words of N(a) & N(b) & gt(b), n (B,) int64 their sizes)."""
-    global launches
     B, T, W = _check_pairs(A, pairs)
     if A.device.type == "cpu":
         return edge_candidates_torch(A, pairs)
@@ -85,5 +83,5 @@ def edge_candidates(A: torch.Tensor, pairs: torch.Tensor
         if rc:
             raise RuntimeError(f"edge_candidates launch failed: CUDA error "
                                f"{rc}")
-        launches += 1
+        count_call(__name__, "launches")
     return cand, n

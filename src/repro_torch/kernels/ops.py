@@ -32,6 +32,7 @@ from . import clique_list as _cl
 from . import intersect as _is
 from . import ref as _ref
 from . import triangle_mm as _tm
+from .common import COUNTER_LOCK
 
 METHODS = ("auto", "mxu", "dfs", "ref")
 
@@ -78,16 +79,21 @@ def edge_candidates(A: torch.Tensor, pairs: torch.Tensor
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    with COUNTER_LOCK:
+        return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def plain_counts() -> Dict[str, int]:
     """Plain-version calls per kernel since the last reset."""
-    return {name: mod.plain_calls for name, mod in _KERNELS.items()}
+    with COUNTER_LOCK:
+        return {name: mod.plain_calls for name, mod in _KERNELS.items()}
 
 
 def reset_counts() -> None:
-    """Set every launch and plain-call counter to 0."""
-    for mod in _KERNELS.values():
-        mod.launches = 0
-        mod.plain_calls = 0
+    """Set every launch and plain-call counter to 0 (the wrappers add to
+    them under :data:`~repro_torch.kernels.common.COUNTER_LOCK`, from any
+    thread)."""
+    with COUNTER_LOCK:
+        for mod in _KERNELS.values():
+            mod.launches = 0
+            mod.plain_calls = 0

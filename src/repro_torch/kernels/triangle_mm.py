@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import check_tiles, gt_masks, triangles_within_chunked, widen
+from .common import (check_tiles, count_call, gt_masks,
+                     triangles_within_chunked, widen)
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
@@ -33,8 +34,7 @@ def triangle_count_tiles_torch(A: torch.Tensor,
     Batched ``triangles_within``, chunked over B so the (b, T, T, W) int64
     pair intersection stays under about 256 MB.
     """
-    global plain_calls
-    plain_calls += 1
+    count_call(__name__, "plain_calls")
     _, T, _ = check_tiles(A, cand)
     return triangles_within_chunked(widen(A), widen(cand), gt_masks(T, A.device))
 
@@ -42,7 +42,6 @@ def triangle_count_tiles_torch(A: torch.Tensor,
 def triangle_count_tiles(A: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """(B, T, W) int32, (B, W) int32 -> (B,) int64 per-tile triangle counts
     (uint32 values, as the reference returns them)."""
-    global launches
     B, T, _ = check_tiles(A, cand)
     if A.device.type == "cpu":
         return triangle_count_tiles_torch(A, cand)
@@ -58,5 +57,5 @@ def triangle_count_tiles(A: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
         if rc:
             raise RuntimeError(f"triangle_count_tiles launch failed: CUDA "
                                f"error {rc}")
-        launches += 1
+        count_call(__name__, "launches")
     return out

@@ -5,17 +5,23 @@ device engines.
 ``python -m repro_torch.launch.clique --graph rmat:10 --k 5 --list --verify``
 
 Host preprocessing (truss order cached in a PipelinePlan) -> vectorized
-extraction + capacity-batched packing on a pool of pack threads -> the CUDA
-kernels, one packed batch at a time -> exact host combine.  Oversize tiles
-spill to the host recursion.  ``--list`` lists the cliques through the
-list kernel instead (``--sink PATH`` writes them to an NPZ, ``--max-out N``
-stops after N).  It runs on the CUDA device; ``--device cpu`` runs the
-plain torch versions instead.
+extraction + capacity-batched packing on a pool of pack threads -> LPT
+cost-balanced placement of packed batches on lanes (one CUDA stream each,
+``repro_torch.runtime.dispatch``) with double-buffered staging -> the CUDA
+kernels -> exact host combine.  Oversize tiles spill to the host
+recursion.  ``--devices`` (default ``all``: every visible CUDA device, one
+lane each) takes a lane count; ``--offline-lpt`` materializes the batches
+and maps ``schedule_batches`` bins one-to-one onto lanes (and prints the
+balance); ``--shard-map`` splits each batch by rows over the lanes;
+``--sync-staging`` harvests every batch before the next is staged.
+``--list`` lists the cliques through the list kernel instead (``--sink
+PATH`` writes them to an NPZ, ``--max-out N`` stops after N).  It runs on
+the CUDA device; ``--device cpu`` runs the plain torch versions instead,
+with ``--devices N`` as N CPU lanes (``all`` is one).
 
-Still to be ported from the reference launcher: ``--devices``,
-``--shard-map``, ``--offline-lpt``,
-``--sync-staging``, ``--backend``, ``--tune-cache``, ``--fault-plan``,
-``--trace-out``, ``--metrics-port``, ``--plan-cache``, ``--log-level``.
+Still to be ported from the reference launcher: ``--backend``,
+``--plan-cache``, ``--tune-cache``, ``--fault-plan``, ``--trace-out``,
+``--metrics-port``, ``--log-level``.
 """
 from __future__ import annotations
 
@@ -25,8 +31,11 @@ import time
 import numpy as np
 
 from ..core import ebbkc, engine_torch, listing, pipeline
+from ..core import tiles as tiles_mod
+from ..core.engine_np import Stats
 from ..core.graph import Graph
 from ..data import graphs as gdata
+from ..runtime.dispatch import Dispatcher, dispatch_scheduled, resolve_devices
 
 
 def load_graph(desc: str) -> Graph:
@@ -45,6 +54,15 @@ def load_graph(desc: str) -> Graph:
     raise ValueError(f"unknown graph spec {desc}")
 
 
+def parse_devices(spec: str, device):
+    """The lanes of ``--devices``: "all" or an int count.  On a CUDA
+    ``device`` they are CUDA devices (clamped to those available); on the
+    CPU, N CPU lanes ("all" is one)."""
+    if device.type == "cpu":
+        return [device] * (1 if spec == "all" else int(spec))
+    return resolve_devices("all" if spec == "all" else int(spec))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="rmat:12")
@@ -58,6 +76,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help='torch device to count on (default "cuda"; '
                          '"cpu" runs the plain torch versions)')
+    ap.add_argument("--devices", default="all",
+                    help='"all" or lane count (clamped to the CUDA devices '
+                         'available; with --device cpu, N CPU lanes)')
+    ap.add_argument("--shard-map", action="store_true",
+                    help="split each batch by rows over the lanes instead "
+                         "of LPT-placing whole batches on lanes")
+    ap.add_argument("--offline-lpt", action="store_true",
+                    help="materialize all batches, then map "
+                         "schedule_batches LPT bins one-to-one onto lanes "
+                         "(prints balance; default is streaming online-LPT "
+                         "dispatch, which overlaps packing with device "
+                         "execution and keeps host memory bounded)")
+    ap.add_argument("--sync-staging", action="store_true",
+                    help="disable double-buffered host->device staging")
     ap.add_argument("--list", action="store_true", dest="list_mode",
                     help="list the cliques through the list kernel instead "
                          "of counting them")
@@ -73,38 +105,92 @@ def main(argv=None) -> int:
     g = load_graph(args.graph)
     print(f"graph: n={g.n} m={g.m}")
     device = engine_torch.resolve_device(args.device)
+    devices = parse_devices(args.devices, device)
     t0 = time.perf_counter()
     plan = pipeline.cached_plan(g, order=args.order)
     t_plan = time.perf_counter() - t0
     if args.list_mode:
-        return _list(args, g, plan, device)
+        return _list(args, g, plan, devices)
 
+    l = args.k - 2
+    mesh = devices if args.shard_map else None
+    stats = Stats()
     stage = {}
+    stream = pipeline.stream_batches(plan, args.k, order=args.order,
+                                     batch_size=args.batch_size,
+                                     timings=stage,
+                                     pack_workers=args.pack_workers,
+                                     stats=stats)
     t0 = time.perf_counter()
-    res = engine_torch.count(g, args.k, order=args.order, plan=plan,
-                             batch_size=args.batch_size,
-                             pack_workers=args.pack_workers,
-                             stage_times=stage, device=device)
+    info = {}
+    n_batches = 0
+    n_tiles = 0
+    total = 0
+    try:
+        if args.offline_lpt:
+            # materialize, then scheduler bins become real lanes
+            batches = []
+            for item in stream:
+                if isinstance(item, tiles_mod.Tile):
+                    n_tiles += 1
+                    total += engine_torch.count_spilled(
+                        item, args.order, l, stats, et_t=3, use_rule2=True)
+                else:
+                    batches.append(item)
+                    n_tiles += item.B
+            n_batches = len(batches)
+            got, info = dispatch_scheduled(
+                batches, l, devices, mesh=mesh,
+                async_staging=not args.sync_staging, stats=stats,
+                stage_times=stage)
+            total += got
+        else:
+            # streaming: pack(i+1) on the host overlaps kernel(i) on lanes
+            disp = Dispatcher(l, devices, mesh=mesh,
+                              async_staging=not args.sync_staging,
+                              stats=stats, stage_times=stage)
+            for item in stream:
+                if isinstance(item, tiles_mod.Tile):
+                    n_tiles += 1
+                    total += engine_torch.count_spilled(
+                        item, args.order, l, stats, et_t=3, use_rule2=True)
+                else:
+                    n_batches += 1
+                    n_tiles += item.B
+                    disp.submit(item)
+            total += disp.finish()
+    finally:
+        stream.close()  # stops the pack workers on error too
     t_count = time.perf_counter() - t0
-    st = res.stats
+    # packing is interleaved with counting; stream_batches bills it apart
     t_pack = stage.get("extract", 0.0) + stage.get("pack", 0.0)
-    print(f"tiles={res.tiles} spilled={st.spilled_tiles} "
-          f"backend={st.backend} pack_workers={st.pack_workers} "
-          f"queue_occ={st.pack_queue_occupancy:.2f}")
-    print(f"k={args.k}: {res.count} cliques "
+    balance = info.get("max_over_mean")
+    bal_txt = f" balance max/mean={balance:.3f}" if balance else ""
+    print(f"batches={n_batches} tiles={n_tiles} "
+          f"spilled={stats.spilled_tiles} devices={len(devices)}"
+          f"{' (shard_map)' if mesh is not None else ''}{bal_txt}")
+    per_dev = " ".join(
+        f"d{d}:{stats.device_tiles[d]}t/{stats.device_flops[d] / 1e6:.0f}MF"
+        for d in sorted(stats.device_tiles))
+    print(f"device tiles/flops: {per_dev or '-'} "
+          f"staging_overlap={stats.staging_overlap_s:.2f}s "
+          f"backend={stats.backend} compile={stats.kernel_compile_s:.2f}s "
+          f"pack_workers={stats.pack_workers} "
+          f"queue_occ={stats.pack_queue_occupancy:.2f}")
+    print(f"k={args.k}: {total} cliques "
           f"(plan {t_plan:.2f}s, front-to-finish {t_count:.2f}s, "
           f"of which extract+pack {t_pack:.2f}s, "
           f"device {stage.get('device', 0.0):.2f}s)")
     if args.verify:
         ref = ebbkc.count(g, args.k, order=args.order, plan=plan,
                           backend="host").count
-        print(f"host engine: {ref}  match={ref == res.count}")
-        if ref != res.count:
+        print(f"host engine: {ref}  match={ref == total}")
+        if ref != total:
             return 1
     return 0
 
 
-def _list(args, g: Graph, plan: pipeline.PipelinePlan, device) -> int:
+def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices) -> int:
     """``--list``: stream the cliques into the sink; with ``--verify``,
     hold the rows as a set against the host recursion's and their number
     against the host count."""
@@ -115,7 +201,8 @@ def _list(args, g: Graph, plan: pipeline.PipelinePlan, device) -> int:
     res = listing.stream_cliques(plan, args.k, sink, order=args.order,
                                  batch_size=args.batch_size,
                                  pack_workers=args.pack_workers,
-                                 stage_times=stage, device=device)
+                                 stage_times=stage, devices=devices,
+                                 async_staging=not args.sync_staging)
     t_list = time.perf_counter() - t0
     sink.close()
     st = res.stats
@@ -124,7 +211,8 @@ def _list(args, g: Graph, plan: pipeline.PipelinePlan, device) -> int:
           f"{t_list:.2f}s ({rate:.0f} cliques/s, {st.sink_bytes} sink bytes"
           f"{', -> ' + args.sink if args.sink else ''})")
     print(f"tiles={res.tiles} spilled={st.spilled_tiles} "
-          f"overflowed={st.overflowed_tiles} backend={st.backend} "
+          f"overflowed={st.overflowed_tiles} devices={len(devices)} "
+          f"backend={st.backend} "
           f"pack_workers={st.pack_workers} device={stage.get('device', 0.0):.2f}s "
           f"decode={stage.get('decode', 0.0):.2f}s")
     if not args.verify:

@@ -353,3 +353,100 @@ def test_list_capacity_cuts_inside_item_blocks(cuda, T):
         caps.add(int(row[0]) + max(1, int(row[1]) // 2))
     assert nz.numel() > 0
     _assert_dfs_kernels_match(A, cand, 5, caps=sorted(caps))
+
+
+# ---------------------------------------------------------------------------
+# multi-lane dispatch (repro_torch.runtime.dispatch) on the card
+# ---------------------------------------------------------------------------
+
+_CPU_ROWS = {}
+
+
+def _list_rows(spec, k, **kwargs):
+    from repro_torch.launch.clique import load_graph
+    sink = listing.ArraySink(k)
+    res = listing.stream_cliques(load_graph(spec), k, sink, **kwargs)
+    return sink.result(), res.stats
+
+
+def _cpu_rows(spec, k, capacity=None):
+    """The inline CPU path's rows; a pinned int ``capacity`` relists the
+    overflowed tiles on the host, whose row order within a tile differs
+    from the kernel's, so it is held against the CPU at that capacity."""
+    if (spec, k, capacity) not in _CPU_ROWS:
+        _CPU_ROWS[(spec, k, capacity)] = _list_rows(
+            spec, k, device="cpu", capacity=capacity)[0]
+    return _CPU_ROWS[(spec, k, capacity)]
+
+
+@pytest.mark.parametrize("k", [3, 4, 5, 6, 7])
+@pytest.mark.parametrize("spec", ["rmat:10", "er:400,0.06"])
+def test_list_dispatcher_rows_on_lanes_match_cpu(cuda, spec, k):
+    """One and two lanes on one card, in each capacity mode (16 rows
+    overflows dense tiles to the host relist): the CPU rows, in order."""
+    for lanes in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        for capacity in (None, "speculative", 16):
+            want = _cpu_rows(spec, k, capacity if capacity == 16 else None)
+            ops.reset_counts()
+            got, st = _list_rows(spec, k, devices=lanes, capacity=capacity)
+            assert np.array_equal(got, want), (lanes, capacity)
+            assert st.emitted_cliques == want.shape[0]
+            assert (ops.launch_counts()["clique_list_tiles"] > 0) == (
+                st.device_tiles != {})
+            assert sum(ops.plain_counts().values()) == 0
+            if len(lanes) == 2 and spec == "rmat:10":
+                assert len(st.device_tiles) == 2  # both lanes took batches
+
+
+@pytest.mark.parametrize("k", [3, 5, 6, 7])
+def test_dispatcher_counts_on_lanes_match_host(cuda, k):
+    from repro_torch.runtime import dispatch
+    g = graphs.rmat_graph(10, edge_factor=8, seed=7)
+    want = ebbkc.count(g, k, backend="host").count
+    for lanes in (["cuda:0"], ["cuda:0"] * 2, ["cuda:0"] * 3):
+        for staging in (True, False):
+            res = engine_torch.count(g, k, devices=lanes,
+                                     async_staging=staging)
+            assert res.count == want, (lanes, staging)
+            assert len(res.stats.device_tiles) == len(lanes)
+    from repro_torch.core import pipeline
+    batches = list(pipeline.stream_batches(g, k))
+    assert all(isinstance(b, pipeline.TileBatch) for b in batches)  # no spill
+    for mesh in (None, ["cuda:0"] * 2):
+        total, _ = dispatch.dispatch_scheduled(batches, k - 2,
+                                               ["cuda:0"] * 2, mesh=mesh)
+        assert total == want, mesh
+
+
+def test_two_lanes_run_kernels_on_two_streams(cuda, tmp_path):
+    """A profiled two-lane count puts its DFS kernels on two distinct
+    streams (the CUDA stream ids of the trace)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    g = graphs.rmat_graph(10, edge_factor=8, seed=7)
+    engine_torch.count(g, 6, devices=["cuda:0"])  # builds the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = engine_torch.count(g, 6, devices=["cuda:0", "cuda:0"])
+        torch.cuda.synchronize()
+    assert res.count == ebbkc.count(g, 6, backend="host").count
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    streams = {e["args"]["stream"] for e in events
+               if e.get("cat") == "kernel" and "item_kernel" in e["name"]}
+    assert len(streams) >= 2, streams
+
+
+def test_decode_worker_waits_for_each_copy_back(cuda):
+    """A large pinned capacity and a one-batch window: each triple's copy
+    back is long and the decode worker reads it right after the launch;
+    the rows must still be the CPU's, run after run."""
+    want = _cpu_rows("rmat:10", 6)
+    for lanes in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        for _ in range(3):
+            got, st = _list_rows("rmat:10", 6, devices=lanes,
+                                 capacity=16384, max_inflight=1)
+            assert np.array_equal(got, want), lanes
+            assert st.overflowed_tiles == 0

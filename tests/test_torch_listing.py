@@ -348,13 +348,23 @@ def test_list_cliques_host_backend_and_closed_forms(planted):
 
 def test_listing_rejects_dispatcher_modes_and_missing_cuda(planted,
                                                            monkeypatch):
+    """The dispatcher's modes now run (``devices=`` through the
+    ListDispatcher; the string capacities fall back to exact sizing on
+    the inline path) and give the inline rows; bad modes, k < 3 and CUDA
+    without a card raise."""
     g, _ = planted
+    base = listing.ArraySink(4)
+    listing.stream_cliques(g, 4, base, device="cpu")
+    for kwargs in (dict(devices=["cpu"]), dict(capacity="speculative"),
+                   dict(capacity="sized"),
+                   dict(devices=["cpu"], capacity="speculative")):
+        got = listing.ArraySink(4)
+        listing.stream_cliques(g, 4, got, device="cpu", **kwargs)
+        np.testing.assert_array_equal(got.result(), base.result())
     sink = listing.ArraySink(4)
-    with pytest.raises(NotImplementedError):
-        listing.stream_cliques(g, 4, sink, devices=["cpu"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        listing.stream_cliques(g, 4, sink, capacity="speculative",
-                               device="cpu")
+    with pytest.raises(ValueError):
+        listing.stream_cliques(g, 4, sink, devices=["cpu"],
+                               capacity="bogus")
     with pytest.raises(ValueError):
         listing.stream_cliques(g, 4, sink, capacity="bogus", device="cpu")
     with pytest.raises(ValueError):
@@ -364,6 +374,9 @@ def test_listing_rejects_dispatcher_modes_and_missing_cuda(planted,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         ebbkc.list_cliques(g, 4)
+    for devices in (["cuda:0"], "all", 2):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            listing.stream_cliques(g, 4, sink, devices=devices)
 
 
 @pytest.mark.parametrize("argv", [
