@@ -28,9 +28,26 @@ kernel counters set to 0 just before it and read just after:
   and on two lanes (speculative capacity), against the same counts and
   digests;
 
-and finally runs the command-line launcher with ``--verify``, counting
-(through the dispatcher, its default) and listing.  Any failure raises and
-exits non-zero.
+then runs the command-line launcher with ``--verify``, counting (through
+the dispatcher, its default) and listing, and finally:
+
+* observability (``[obs]``, ``repro_torch.obs``): the one-lane k = 7
+  count traced (a valid Chrome trace through every stage span, traced
+  wall beside untraced, ``kernel_records`` calls equal to the count
+  kernel's launches, and the DFS count kernel's device seconds from the
+  ``[dispatch]`` profiler window), the k = 6 listing of the listing phase,
+  which runs traced (the host relist's span total), one scrape of a
+  ``MetricsServer``, and a ``profile_span`` capture of the k = 5 count on
+  the scale-12 graph (CUDA kernel events of the triangle kernel);
+* resilience (``[resilience]``, ``repro_torch.resilience``): no query so
+  far retried or demoted anything; under the plan ``seed=7;*=0.1`` the
+  dispatched k = 6 count and k = 5 listing on the scale-12 graph stay
+  exact; under ``kernel.launch=1.0`` a small graph's count and listing
+  retry their first batch on the kernel and then raise, with no
+  plain-version call and no host finish; a real error raised by a launch
+  propagates undemoted.
+
+Any failure raises and exits non-zero.
 
 Kernel times: ``device_ms`` is the device time of one call, from 100
 calls of the bare C entry point (with the wrapper's zero fills) captured in
@@ -574,8 +591,9 @@ def ptxas_report(text: str):
                           r"(I.*?EE)?", sym)
             name = None
             if k:
-                # template arguments: ILi1E... (W), LNS0_7ItemOutE0E (mode)
-                args = re.findall(r"L(?:i|N\w*?E)(\d+)E", k.group(2) or "")
+                # template arguments: ILi1E... (W), LNS0_7ItemOutE0E (mode),
+                # Lb1E (a full block)
+                args = re.findall(r"L(?:i|b|N\w*?E)(\d+)E", k.group(2) or "")
                 name = k.group(1) + ("<" + ",".join(args) + ">" if args
                                      else "")
                 out.setdefault(name, {"registers": None, "stack": None,
@@ -621,12 +639,14 @@ def batches_per_bin(plan, k: int):
             {T: int(per_T[i]) for i, T in enumerate(BINS)})
 
 
-def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs) -> dict:
+def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
+                   queries) -> dict:
     """``[dispatch]``: the main path's queries through the multi-lane
     dispatcher, each with the kernel counters set to 0 just before it and
     read just after.  Each run must give the expected count (or rows and
     digest), launch its kernels and no plain version, and, on two lanes,
-    place tiles on both.  Returns every run's numbers."""
+    place tiles on both.  Appends each query's Stats to ``queries``.
+    Returns every run's numbers."""
     import numpy as np
     from repro_torch.core import ebbkc, engine_torch, listing, pipeline
     from repro_torch.core.engine_np import Stats
@@ -636,6 +656,7 @@ def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs) -> dict:
     runs = {}
 
     def record(name, kernels, wall, stats, stage, inline_s, **extra):
+        queries.append((f"[dispatch] {name}", stats))
         launches = ops.launch_counts()
         plain = ops.plain_counts()
         # the count dispatcher accounts the overlap; the ListDispatcher
@@ -769,7 +790,9 @@ def device_busy(name: str, query) -> dict:
     once more under ``torch.profiler`` (CUDA activity only), and the union
     of its device intervals (kernels, copies, fills, on every stream) is
     set against the query's wall time.  The sum of the intervals over
-    their union says how much the lanes' work overlapped."""
+    their union says how much the lanes' work overlapped, and the DFS
+    count kernel's share of them (its branch and item passes) is the
+    query's count-kernel device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -777,9 +800,11 @@ def device_busy(name: str, query) -> dict:
         result = query()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    dfs = [e.time_range.end - e.time_range.start for e in events
+           if "branch_kernel" in e.name or "item_kernel" in e.name]
     busy_us, total_us, end = 0.0, 0.0, float("-inf")
     for a, b in spans:
         total_us += b - a
@@ -788,14 +813,17 @@ def device_busy(name: str, query) -> dict:
             end = b
     out = dict(result=result, wall_s=wall, device_events=len(spans),
                busy_s=busy_us / 1e6, summed_s=total_us / 1e6,
-               busy_share=busy_us / 1e6 / wall if spans else None)
+               busy_share=busy_us / 1e6 / wall if spans else None,
+               count_kernel_events=len(dfs),
+               count_kernel_s=sum(dfs) / 1e6)
     if spans:
         share = out["busy_share"]
         log(f"[dispatch] device busy, {name} under the profiler: wall "
             f"{wall:.2f} s, {len(spans)} device events, "
             f"busy {out['busy_s']:.3f} s ({100 * share:.2f}% of wall; idle "
             f"{100 - 100 * share:.2f}%), summed {out['summed_s']:.3f} s "
-            f"({out['summed_s'] / out['busy_s']:.2f}x the busy time)")
+            f"({out['summed_s'] / out['busy_s']:.2f}x the busy time); DFS "
+            f"count kernel {len(dfs)} events, {out['count_kernel_s']:.4f} s")
     else:
         log("[dispatch] device busy share not measured: the profiler saw "
             "no device events")
@@ -851,6 +879,327 @@ def lane_concurrency(plan, reps: int = 40) -> dict:
     return out
 
 
+#: the spans a dispatched count query passes through on a warm plan (the
+#: library is loaded, so kernel/compile is a lookup), and those of an
+#: inline listing query whose tiles overflow (the k = 6 listing)
+OBS_COUNT_SPANS = ("kernel/compile", "extract", "pack", "device/stage",
+                   "device/harvest", "combine")
+OBS_LIST_SPANS = ("extract", "pack", "device/sizing", "device/wait",
+                  "decode", "overflow/relist")
+#: where profile_span writes its captures (git-ignored)
+PROFILE_DIR = ROOT / "build" / "obs_profile"
+
+
+def profiled_kernels(path, tags) -> dict:
+    """Device kernel events of a ``profile_span`` capture whose names
+    contain one of ``tags``: their number and summed device seconds."""
+    doc = json.loads(Path(path).read_text())
+    durs = [e.get("dur", 0.0) for e in doc.get("traceEvents", [])
+            if e.get("cat") == "kernel"
+            and any(t in e.get("name", "") for t in tags)]
+    return dict(events=len(durs), device_s=sum(durs) / 1e6)
+
+
+def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
+              queries) -> dict:
+    """``[obs]``: the port's tracer, kernel attribution, metrics server and
+    profiler capture on the main path.  The one-lane k = 7 query runs
+    traced (same count, a valid Chrome trace through every stage span,
+    kernel_records' calls equal to the count kernel's launches); the k = 6
+    listing of ``[list main]`` ran traced (``list_trace``: its trace doc,
+    dropped events, wall and Stats; same rows and digest, checked there)
+    and gives the host relist's span total; a MetricsServer is scraped
+    once; ``profile_span`` captures the k = 5 count on the scale-12 graph
+    (CUDA kernel events of the triangle kernel); and the DFS count
+    kernel's device seconds of a k = 7 query come from ``[dispatch]``'s
+    profiler window.  Appends each query's Stats to ``queries``."""
+    from repro_torch.core import ebbkc
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.obs import trace
+    from repro_torch.obs.export import MetricsServer, scrape
+    out = {}
+
+    def check(doc, what):
+        problems = trace.validate_chrome_trace(doc)
+        if problems:
+            fail(f"obs: the {what} trace is not valid: {problems[:5]}")
+        return {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+
+    # the dispatched one-lane k = 7 query, traced
+    obs_profile.reset_kernels()
+    ops.reset_counts()
+    trace.configure(enabled=True)
+    trace.reset()
+    try:
+        t0 = time.perf_counter()
+        res = ebbkc.count(g, 7, plan=plan,
+                          engine_kwargs=dict(devices=["cuda:0"]))
+        wall = time.perf_counter() - t0
+    finally:
+        trace.configure(enabled=False)
+    doc, dropped = trace.chrome_trace(), trace.dropped()
+    trace.reset()
+    queries.append(("[obs] count k=7 traced", res.stats))
+    names = check(doc, "k=7 count")
+    launches = ops.launch_counts()["clique_count_tiles"]
+    recs = [r for r in obs_profile.kernel_records()
+            if r["sig"].startswith("count[")]
+    calls = sum(r["calls"] for r in recs)
+    stages = trace.stage_durations(doc)
+    untraced = dispatch_runs["count k=7 rmat15 1 lane"]["wall_s"]
+    busy = dispatch_runs["device_busy"]
+    out["count_k7"] = dict(
+        count=res.count, wall_s=wall, untraced_wall_s=untraced,
+        dropped=dropped, events=len(doc["traceEvents"]),
+        stage_durations=stages, launches=launches, kernel_records=recs,
+        count_kernel_device_s=busy["count_kernel_s"],
+        count_kernel_events=busy["count_kernel_events"])
+    log(f"[obs] count k=7 rmat15 1 lane, traced: {res.count}, wall "
+        f"{wall:.2f} s against {untraced:.2f} s untraced in this call "
+        f"({100 * (wall / untraced - 1):+.1f}%), "
+        f"{len(doc['traceEvents'])} events, dropped {dropped}")
+    log("[obs]   stage_durations (s, summed over threads): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(stages.items())))
+    for r in sorted(recs, key=lambda r: r["sig"]):
+        log(f"[obs]   kernel_records {r['sig']}: calls {r['calls']}, "
+            f"execute_s {r['execute_s']:.4f} (host blocked at harvest), "
+            f"compile_s {r['compile_s']:.4f}")
+    log(f"[obs]   DFS count kernel device time of a k=7 query (profiler, "
+        f"[dispatch] device busy window): {busy['count_kernel_events']} "
+        f"events, {busy['count_kernel_s']:.4f} s")
+    if res.count != EXPECTED[7]:
+        fail(f"obs: traced k=7 counted {res.count}, expected {EXPECTED[7]}")
+    missing = set(OBS_COUNT_SPANS) - names
+    if missing:
+        fail(f"obs: the traced k=7 query has no {sorted(missing)} span")
+    if calls != launches or launches == 0:
+        fail(f"obs: kernel_records calls {calls} != count kernel launches "
+             f"{launches}")
+    if busy["count_kernel_events"] != 2 * launches:
+        fail(f"obs: the profiler saw {busy['count_kernel_events']} DFS "
+             f"count kernel passes for {launches} launches, not two a "
+             "launch")
+
+    # the traced inline k = 6 listing of [list main]: the host relist
+    doc, dropped, wall, st = list_trace
+    names = check(doc, "k=6 listing")
+    stages = trace.stage_durations(doc)
+    relists = sum(e["name"] == "overflow/relist" for e in doc["traceEvents"])
+    out["list_k6"] = dict(wall_s=wall, dropped=dropped,
+                          events=len(doc["traceEvents"]),
+                          stage_durations=stages, relist_spans=relists,
+                          relist_s=stages.get("overflow/relist", 0.0))
+    log(f"[obs] list k=6 rmat12 inline ([list main], traced): wall "
+        f"{wall:.2f} s, overflow/relist {relists} spans, "
+        f"{out['list_k6']['relist_s']:.2f} s "
+        f"({100 * out['list_k6']['relist_s'] / wall:.1f}% of wall), decode "
+        f"{stages.get('decode', 0.0):.2f} s, device/wait "
+        f"{stages.get('device/wait', 0.0):.2f} s, device/sizing "
+        f"{stages.get('device/sizing', 0.0):.2f} s, dropped {dropped}")
+    missing = set(OBS_LIST_SPANS) - names
+    if missing or relists != st.overflowed_tiles:
+        fail(f"obs: the traced k=6 listing lacks {sorted(missing)} or has "
+             f"{relists} relist spans for {st.overflowed_tiles} "
+             "overflowed tiles")
+
+    # one scrape of the metrics server
+    reg = obs_metrics.Registry()
+    obs_metrics.observe_stats(st, "repro_engine", reg)
+    srv = MetricsServer(port=0, registry=reg)
+    try:
+        text = scrape(srv.address)
+    finally:
+        srv.close()
+    values = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, val = line.rsplit(" ", 1)
+            values[key] = float(val)
+    out["metrics"] = dict(series=len(values), bytes=len(text))
+    log(f"[obs] metrics: scraped {srv.address}/metrics once: {len(values)} "
+        f"series, {len(text)} bytes")
+    if values.get("repro_engine_emitted_cliques_total") != EXPECTED_LIST[6][0]:
+        fail("obs: the scrape did not parse to the listing's row count")
+
+    # a profiler capture of the k = 5 count on rmat12 (triangle kernel)
+    PROFILE_DIR.mkdir(parents=True, exist_ok=True)
+    for old in PROFILE_DIR.glob("*.json"):
+        old.unlink()
+    name = "count_k5_rmat12"
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with obs_profile.profile_span(name, out_dir=str(PROFILE_DIR)):
+        res = ebbkc.count(lg, 5, plan=lplan,
+                          engine_kwargs=dict(devices=["cuda:0"]))
+    got = res.count
+    queries.append((f"[obs] profile_span {name}", res.stats))
+    wall = time.perf_counter() - t0
+    (path,) = PROFILE_DIR.glob(f"{name}.*.json")
+    kern = profiled_kernels(path, ("tri_",))
+    launches = ops.launch_counts()["triangle_count_tiles"]
+    out[name] = dict(count=got, wall_s=wall, launches=launches,
+                     file_bytes=path.stat().st_size, **kern)
+    log(f"[obs] profile_span {name}: {got}, wall {wall:.2f} s under the "
+        f"profiler, {path.stat().st_size} B Chrome trace, {kern['events']} "
+        f"CUDA kernel events of triangle_count_tiles for {launches} "
+        f"launches, device {kern['device_s']:.6f} s")
+    if got != EXPECTED_LIST[5][0]:
+        fail(f"obs: profiled {name} counted {got}, expected "
+             f"{EXPECTED_LIST[5][0]}")
+    if kern["events"] == 0 or kern["events"] != launches:
+        fail(f"obs: the {name} capture has {kern['events']} CUDA kernel "
+             f"events of the triangle kernel for {launches} launches")
+    return out
+
+
+def resilience_phase(lg, lplan, queries, cli_outputs) -> dict:
+    """``[resilience]``: with no fault plan armed, no query retried or
+    demoted anything; under ``seed=7;*=0.1`` the dispatched k = 6 count
+    and k = 5 listing on rmat12 stay exact with retries; under
+    ``kernel.launch=1.0`` a small graph's count and listing on the card
+    retry the first batch on the kernel and then raise, with no kernel
+    launch, no plain-version call and no host finish; a real error raised
+    by a launch propagates out of the query undemoted.  The plan is
+    disarmed before the phase ends."""
+    import numpy as np
+    from repro_torch.core import ebbkc, listing, pipeline
+    from repro_torch.core.engine_np import Stats
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.kernels import clique_count, ops
+    from repro_torch.resilience import inject, retry
+    from repro_torch.runtime import dispatch
+    out = {}
+    if inject.enabled():
+        fail("resilience: a fault plan was armed during the earlier phases")
+    bad = [(name, st.retries, st.demotions) for name, st in queries
+           if st.retries or st.demotions]
+    bad += [("[cli]", out_) for out_ in cli_outputs
+            if "retries=0 demotions=0" not in out_]
+    log(f"[resilience] no plan armed: {len(queries)} queries and "
+        f"{len(cli_outputs)} launcher runs, retries and demotions all 0: "
+        f"{not bad}")
+    if bad:
+        fail(f"resilience: retries or demotions with no plan armed: {bad}")
+    out["unarmed_queries"] = len(queries) + len(cli_outputs)
+    one = ["cuda:0"]
+
+    def rows_of(query):
+        digest, nrows = hashlib.sha256(), [0]
+
+        def hash_rows(chunk):
+            digest.update(np.ascontiguousarray(chunk, dtype="<i8"))
+            nrows[0] += chunk.shape[0]
+        res = query(listing.CallbackSink(hash_rows))
+        return res, (nrows[0], digest.hexdigest())
+
+    try:
+        plan_spec = "seed=7;*=0.1"
+        inject.configure(plan_spec)
+        t0 = time.perf_counter()
+        res = ebbkc.count(lg, 6, plan=lplan, engine_kwargs=dict(devices=one))
+        wall = time.perf_counter() - t0
+        fired = inject.fired()
+        out["chaos_count_k6"] = dict(count=res.count, wall_s=wall,
+                                     retries=res.stats.retries,
+                                     demotions=res.stats.demotions,
+                                     fired=fired)
+        log(f"[resilience] {plan_spec}: count k=6 rmat12 1 lane {res.count} "
+            f"in {wall:.2f} s, retries {res.stats.retries}, demotions "
+            f"{res.stats.demotions}, faults fired {fired}")
+        if res.count != EXPECTED_LIST[6][0] or res.stats.retries == 0:
+            fail(f"resilience: chaos k=6 count {res.count} (expected "
+                 f"{EXPECTED_LIST[6][0]}) with {res.stats.retries} retries")
+        inject.configure(plan_spec)
+        t0 = time.perf_counter()
+        res, got = rows_of(lambda sink: listing.stream_cliques(
+            lplan, 5, sink, devices=one))
+        wall = time.perf_counter() - t0
+        fired = inject.fired()
+        out["chaos_list_k5"] = dict(rows=got[0], sha256=got[1], wall_s=wall,
+                                    retries=res.stats.retries,
+                                    demotions=res.stats.demotions,
+                                    fired=fired)
+        log(f"[resilience] {plan_spec}: list k=5 rmat12 1 lane {got[0]} "
+            f"rows in {wall:.2f} s, sha256 equal: "
+            f"{got == EXPECTED_LIST[5]}, retries {res.stats.retries}, "
+            f"demotions {res.stats.demotions}, faults fired {fired}")
+        if got != EXPECTED_LIST[5] or res.stats.retries == 0:
+            fail(f"resilience: chaos k=5 listing gave {got} with "
+                 f"{res.stats.retries} retries")
+
+        # every launch failing, on a small graph: on the card the first
+        # batch is retried on the kernel, then the fault raises out of the
+        # query; nothing moves to the plain version or the host
+        sg = rmat_graph(9, edge_factor=RMAT_EDGE_FACTOR, seed=RMAT_SEED)
+        splan = pipeline.cached_plan(sg, "hybrid")
+        attempts = retry.DEFAULT_POLICY.max_attempts
+        faults = {}
+        for name, query in (
+                ("count", lambda: ebbkc.count(
+                    sg, 5, plan=splan, engine_kwargs=dict(devices=one))),
+                ("list", lambda: listing.stream_cliques(
+                    splan, 5, listing.CallbackSink(lambda chunk: None),
+                    devices=one))):
+            inject.configure("kernel.launch=1.0")
+            ops.reset_counts()
+            raised = None
+            try:
+                query()
+            except inject.FaultInjected as exc:
+                raised = str(exc)
+            fired = inject.fired().get("kernel.launch", 0)
+            inject.configure(None)
+            faults[name] = dict(raised=raised, fired=fired,
+                                launches=sum(ops.launch_counts().values()),
+                                plain_calls=sum(ops.plain_counts().values()))
+        out["launch_fault"] = dict(graph="rmat_graph(9, 16, seed=7)", k=5,
+                                   attempts=attempts, **faults)
+        log(f"[resilience] kernel.launch=1.0 on rmat_graph(9), k=5, on the "
+            f"card: {faults} (policy: {attempts} attempts)")
+        if any(f["raised"] is None or f["fired"] != attempts
+               or f["launches"] or f["plain_calls"]
+               for f in faults.values()):
+            fail("resilience: kernel.launch=1.0 on the card did not raise "
+                 "after the retries of the first batch, or ran a plain "
+                 "version or the host")
+
+        # a real error is not retried or demoted: it propagates, with a
+        # plan armed that fires (at harvest only, so nothing demotes)
+        plan_spec = "seed=7;device.harvest=0.2"
+        inject.configure(plan_spec)
+        real = clique_count.clique_count_tiles
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("launch failed: CUDA error 700 (injected by "
+                               "the smoke test, not by the fault plan)")
+        clique_count.clique_count_tiles = broken
+        stats = Stats()
+        disp = dispatch.Dispatcher(4, one, stats=stats)
+        raised = None
+        try:
+            for batch in pipeline.stream_batches(splan, 6, pack_workers=0):
+                if isinstance(batch, pipeline.TileBatch):
+                    disp.submit(batch)
+            disp.finish()
+        except RuntimeError as exc:
+            raised = str(exc)
+        finally:
+            clique_count.clique_count_tiles = real
+        out["real_error"] = dict(raised=raised, retries=stats.retries,
+                                 demotions=stats.demotions)
+        log(f"[resilience] a launch raising RuntimeError under {plan_spec}: "
+            f"propagated: {raised is not None}, retries {stats.retries}, "
+            f"demotions {stats.demotions}")
+        if raised is None or "CUDA error 700" not in raised or \
+                stats.demotions:
+            fail("resilience: a real launch error was hidden or demoted")
+    finally:
+        inject.configure(None)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", metavar="PATH", default=None,
@@ -868,6 +1217,7 @@ def main(argv=None) -> int:
     from repro_torch import convert
     from repro_torch.kernels import _build, intersect, ops
     from repro_torch.launch import clique
+    from repro_torch.obs import trace
 
     t_start = time.perf_counter()
     header = gpu_header()
@@ -946,6 +1296,7 @@ def main(argv=None) -> int:
     pipeline.clear_plan_cache()
     ops.reset_counts()
     main_runs = {}
+    queries = []  # (name, Stats) of every query, for [resilience]
     for k in (5, 7):
         # with stage_times given, the engine brackets every count_tiles
         # call with CUDA events and sums the spans per bin (host enqueue
@@ -955,6 +1306,7 @@ def main(argv=None) -> int:
         res = ebbkc.count(g, k, engine_kwargs={"stage_times": stage})
         wall = time.perf_counter() - t0
         st = res.stats
+        queries.append((f"[main] count k={k}", st))
         per_T = {T: 1e3 * stage.get(f"count_tiles_T{T}", 0.0) for T in BINS}
         main_runs[k] = dict(count=res.count, wall_s=wall, tiles=res.tiles,
                             spilled=st.spilled_tiles,
@@ -1058,14 +1410,23 @@ def main(argv=None) -> int:
             digest.update(np.ascontiguousarray(chunk, dtype="<i8"))
             nrows[0] += chunk.shape[0]
         stage = {}
+        if run == "k=6 warm":  # traced; [obs] reads the trace
+            trace.configure(enabled=True)
+            trace.reset()
         ops.reset_counts()
         t0 = time.perf_counter()
         res = listing.stream_cliques(lg, k, listing.CallbackSink(hash_rows),
                                      stage_times=stage)
         wall = time.perf_counter() - t0
+        if run == "k=6 warm":
+            trace.configure(enabled=False)
+            list_trace = (trace.chrome_trace(), trace.dropped(), wall,
+                          res.stats)
+            trace.reset()
         delta = ops.launch_counts()
         list_plain[run] = ops.plain_counts()
         st = res.stats
+        queries.append((f"[list main] {run}", st))
         batches, tiles = batches_per_bin(pipeline.cached_plan(lg, "hybrid"),
                                          k)
         list_runs[run] = dict(
@@ -1156,7 +1517,8 @@ def main(argv=None) -> int:
                     rows, errs, A, cand, k - 2, cap, tag, reps=20)
 
     # -- the multi-lane dispatcher ------------------------------------------
-    dispatch_runs = dispatch_phase(g, plan, lg, lplan, main_runs, list_runs)
+    dispatch_runs = dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
+                                   queries)
 
     # -- phase 5: the launcher ---------------------------------------------
     ops.reset_counts()
@@ -1168,6 +1530,7 @@ def main(argv=None) -> int:
     log("[cli] " + " | ".join(out.strip().splitlines()))
     if rc != 0 or "match=True" not in out:
         fail("launcher --verify did not match the host engine")
+    cli_outputs = [out]
     if ops.launch_counts()["clique_count_tiles"] == 0:
         fail("launcher at k=6 never launched the DFS kernel")
     log(f"[cli] rmat:12 k=6 --verify: {time.perf_counter() - t0:.1f} s")
@@ -1180,6 +1543,7 @@ def main(argv=None) -> int:
                               "--verify"])
         out = buf.getvalue()
         log("[cli] " + " | ".join(out.strip().splitlines()))
+        cli_outputs.append(out)
         if rc != 0 or "match=True" not in out:
             fail(f"launcher --list --verify on {spec} at k={k} did not "
                  "match the host engine")
@@ -1199,6 +1563,7 @@ def main(argv=None) -> int:
                           "--offline-lpt", "--verify"])
     out = buf.getvalue()
     log("[cli] " + " | ".join(out.strip().splitlines()))
+    cli_outputs.append(out)
     if rc != 0 or "match=True" not in out or "balance" not in out:
         fail("launcher --devices 1 --offline-lpt --verify did not match the "
              "host engine")
@@ -1207,6 +1572,11 @@ def main(argv=None) -> int:
              "kernel")
     log(f"[cli] rmat:10 k=5 --devices 1 --offline-lpt --verify: "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # -- observability and resilience ----------------------------------------
+    obs_runs = obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
+                         queries)
+    resilience_runs = resilience_phase(lg, lplan, queries, cli_outputs)
 
     # -- summary -----------------------------------------------------------
     # each kernel's row: the bin with most launches on its path; launches
@@ -1251,6 +1621,7 @@ def main(argv=None) -> int:
              "one_call_build_s": one_call_s, "cases": rows,
              "main": {str(k): v for k, v in main_runs.items()},
              "list_main": list_runs, "dispatch": dispatch_runs,
+             "obs": obs_runs, "resilience": resilience_runs,
              "launches": count_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,

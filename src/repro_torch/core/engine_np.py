@@ -17,7 +17,7 @@ bin here, and the launcher's ``--verify`` checks against it.
 
 All support early termination into :mod:`repro_torch.core.plex`.  Still
 to be ported: ``count_rec_V`` (VBBkC baseline), and the ``Stats`` fields
-of the resilience (``retries``, ``demotions``), delta and tune layers.
+of the delta and tune layers.
 """
 from __future__ import annotations
 
@@ -53,6 +53,11 @@ class Stats:
     # batches whose capacity guess proved too small and were listed once
     # more on the device at the exact size
     emit_retries: int = 0
+    # resilience layer (repro_torch.resilience + runtime.dispatch): device
+    # batch attempts re-run after an injected fault, and rungs of a CPU
+    # lane's backend ladder given up (cuda -> torch -> host)
+    retries: int = 0
+    demotions: int = 0
     # wall seconds the dispatchers spent building the CUDA kernel library
     # at first use (0.0 once it is loaded in this process)
     kernel_compile_s: float = 0.0
@@ -78,9 +83,10 @@ class Stats:
     plan_cache_hit: bool = False
     plan_build_s: float = 0.0
 
-    # How each field combines across Stats objects (Stats.merge), as in the
-    # reference:
-    #   sum  -- additive accumulator
+    # How each field combines across Stats objects (Stats.merge) and how it
+    # publishes to the metrics registry (obs.metrics.observe_stats), as in
+    # the reference:
+    #   sum  -- additive accumulator (counter)
     #   max  -- peak/high-water value
     #   or   -- sticky boolean flag
     #   dict -- per-key additive map (lane index -> amount)
@@ -102,6 +108,8 @@ class Stats:
         "device_bytes": "dict",
         "staging_overlap_s": "sum",
         "emit_retries": "sum",
+        "retries": "sum",
+        "demotions": "sum",
         "kernel_compile_s": "sum",
         "backend": "info",
         "pack_workers": "max",
@@ -114,6 +122,15 @@ class Stats:
         "plan_cache_hit": "or",
         "plan_build_s": "sum",
     }
+    # Metric-publication view of the same table
+    # (repro_torch.obs.metrics.observe_stats reads this), as the
+    # reference builds it.
+    _METRIC_KINDS = dict(
+        _MERGE_KINDS,
+        pack_workers="max",
+        pack_queue_occupancy="max",
+        plan_cache_hit="flag",
+    )
 
     def merge(self, other: "Stats") -> "Stats":
         """Fold ``other`` into ``self`` (in place) and return ``self``.

@@ -24,9 +24,12 @@ Exactness invariants (as in the reference):
 
 ``devices=`` routes the batches through the multi-lane
 :class:`repro_torch.runtime.dispatch.ListDispatcher`, which adds the
-``capacity="speculative"`` mode.  Still to be ported: the autotuned
-geometry (this engine takes the historical defaults), and the trace,
-fault-retry and tune hooks.
+``capacity="speculative"`` mode.  The reference's ``trace`` spans sit
+where it has them (``spill/list``, ``overflow/relist``, ``device/sizing``,
+``device/wait``, ``decode``), and the ``device.harvest``, ``decode`` and
+``sink.write`` fault sites absorb an injected fault in place before the
+stage's work.  Still to be ported: the autotuned geometry (this engine
+takes the historical defaults) and the tune hooks.
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ from . import pipeline
 from . import tiles as tiles_mod
 from ..convert import batch_to_torch
 from ..kernels import ops as kops
+from ..obs import trace
+from ..resilience import retry as fault_retry
 
 #: default cap on the per-tile emit buffer (rows); tiles whose true count
 #: exceeds it overflow to the host relist instead of growing the buffer
@@ -199,14 +204,15 @@ def list_spilled(
     """List one oversize tile on the host (mirrors ``count_spilled``)."""
     stats.spilled_tiles += 1
     stats.spill_sizes.append(tile.s)
-    return _list_tile_host(
-        tile.rows,
-        tile.s,
-        np.asarray(tile.anchor, dtype=np.int64),
-        tile.verts,
-        l,
-        et_t=et_t,
-    )
+    with trace.span("spill/list", s=tile.s):
+        return _list_tile_host(
+            tile.rows,
+            tile.s,
+            np.asarray(tile.anchor, dtype=np.int64),
+            tile.verts,
+            l,
+            et_t=et_t,
+        )
 
 
 def decode_batch(
@@ -243,9 +249,10 @@ def decode_batch(
         stats.overflowed_tiles += 1
         s = int(batch.sizes[b])
         rows = _rows_from_packed(batch.A[b], s)
-        parts[b] = _list_tile_host(
-            rows, s, batch.anchors[b], batch.verts[b], l, et_t=et_t
-        )
+        with trace.span("overflow/relist", s=s):
+            parts[b] = _list_tile_host(
+                rows, s, batch.anchors[b], batch.verts[b], l, et_t=et_t
+            )
     out = np.concatenate(parts)
     if stage_times is not None:
         stage_times["relist"] = stage_times.get("relist", 0.0) \
@@ -328,17 +335,24 @@ def list_batch(
     also under ``"relist"``).
     """
     t0 = time.perf_counter()
+    B = batch.B
     A, cand = batch_to_torch(batch.A, batch.cand, device)
     if capacity is None:
-        counts = kops.count_tiles(A, cand, l).cpu().numpy()
+        with trace.span("device/sizing", B=B, T=batch.T):
+            counts = kops.count_tiles(A, cand, l).cpu().numpy()
         cap = capacity_for(counts, max_capacity)
     else:
         cap = max(1, int(capacity))
-    bufs, cnt, ovf = kops.list_tiles(A, cand, l, cap)
-    bufs, cnt, ovf = bufs.cpu().numpy(), cnt.cpu().numpy(), ovf.cpu().numpy()
+    with trace.span("device/wait", B=B, T=batch.T, capacity=cap):
+        bufs, cnt, ovf = kops.list_tiles(A, cand, l, cap)
+        fault_retry.consume("device.harvest")
+        bufs, cnt, ovf = (bufs.cpu().numpy(), cnt.cpu().numpy(),
+                          ovf.cpu().numpy())
     t1 = time.perf_counter()
-    out = decode_batch(batch, bufs, cnt, ovf, l, stats, et_t=et_t,
-                       stage_times=stage_times)
+    fault_retry.consume("decode")
+    with trace.span("decode", B=B, T=batch.T):
+        out = decode_batch(batch, bufs, cnt, ovf, l, stats, et_t=et_t,
+                           stage_times=stage_times)
     if stage_times is not None:
         stage_times["device"] = stage_times.get("device", 0.0) + t1 - t0
         stage_times["d2h_bytes"] = stage_times.get("d2h_bytes", 0) \
@@ -464,6 +478,7 @@ def stream_cliques(
                                  capacity=capacity, max_capacity=max_capacity,
                                  et_t=et_t, stage_times=stage_times)
             t0 = time.perf_counter()
+            fault_retry.consume("sink.write")
             stats.emitted_cliques += sink.emit(arr)
             if stage_times is not None:
                 stage_times["emit"] = stage_times.get("emit", 0.0) \

@@ -22,10 +22,13 @@ The numpy code is kept identical to the reference so both packages pack
 byte-identical batches; the pure-Python extractor in
 :mod:`repro_torch.core.tiles` is the oracle.
 
-Still to be ported, with the slices that own them: ``save_plan`` /
-``load_plan`` and ``cached_plan(cache_dir=...)`` (checkpoint slice), the
-``trace`` spans (observability slice) and the ``inject`` / ``fault_retry``
-hooks (resilience slice).
+The reference's ``trace`` spans (``plan/build``, ``plan/build_wait``,
+``extract``, ``pack``, ``pack/wait``, the ``plan/cache_hit`` instant) and
+its ``extract`` / ``pack`` fault sites (an injected fault is retried in
+place before the stage's work) sit where the reference has them.  Still
+to be ported, with the checkpoint slice: ``save_plan`` / ``load_plan`` and
+``cached_plan(cache_dir=...)`` with its ``plan/load`` span and
+``plan.load`` fault site.
 """
 from __future__ import annotations
 
@@ -46,6 +49,8 @@ from .bitops import pack_bits as _pack_bits
 from .graph import Graph, greedy_coloring, color_vertex_order, ragged_expand
 from .tiles import Tile
 from .truss import TrussDecomposition, truss_decomposition
+from ..obs import trace
+from ..resilience import retry as fault_retry
 
 #: power-of-two tile-size bins; tiles wider than the last bin spill to host
 BINS = (32, 64, 128, 256)
@@ -364,16 +369,19 @@ def cached_plan(g: Graph, order: str = "hybrid", *,
         if plan is not None:
             if stats is not None:
                 stats.plan_cache_hit = True
+            trace.instant("plan/cache_hit", source="memory", order=order)
             return plan
         if latch is None:
             break
         # single-flight: another thread owns the build; wait for its
         # latch, then loop to take the published plan as a hit (or, if
         # the build failed without publishing, take the build over)
-        latch.wait()
+        with trace.span("plan/build_wait", order=order):
+            latch.wait()
     try:
         t0 = time.perf_counter()
-        plan = build_plan(g, order=order)
+        with trace.span("plan/build", order=order, n=g.n, m=g.m):
+            plan = build_plan(g, order=order)
         if stats is not None:
             stats.plan_build_s += time.perf_counter() - t0
         _plan_cache_insert(key, plan)
@@ -523,6 +531,9 @@ class TileBatch:
 
 def _pack_batch(g: Graph, table: TileTable, ids: np.ndarray, T: int,
                 mode: str) -> TileBatch:
+    # pure function of (table, ids): an injected pack fault is absorbed
+    # by in-place retry before any work happens, so results never change
+    fault_retry.consume("pack")
     D, V, sz, nedges, _ = _chunk_dense(g, table, ids, T)
     if mode == "hybrid":
         colors, perm = _greedy_color_chunk(D, sz)
@@ -647,10 +658,13 @@ def stream_batches(source: Union[Graph, PipelinePlan], k: int,
         raise ValueError("bins must be multiples of 32")
     plan = _as_plan(source)
     t0 = time.perf_counter()
-    table = plan.table(order)
-    ids = table.select(k, use_rule2=use_rule2)
-    sizes = (table.offsets[ids + 1] - table.offsets[ids]).astype(np.int64)
-    binidx = np.searchsorted(np.asarray(bins), sizes)
+    with trace.span("extract", order=order, k=k) as _sp:
+        fault_retry.consume("extract")  # pure stage: retry-in-place
+        table = plan.table(order)
+        ids = table.select(k, use_rule2=use_rule2)
+        sizes = (table.offsets[ids + 1] - table.offsets[ids]).astype(np.int64)
+        binidx = np.searchsorted(np.asarray(bins), sizes)
+        _sp.set(tiles=int(ids.size))
     extract_s = time.perf_counter() - t0
     if timings is not None:
         timings["extract"] = timings.get("extract", 0.0) + extract_s
@@ -681,14 +695,16 @@ def stream_batches(source: Union[Graph, PipelinePlan], k: int,
     if serial:
         for T, chunk in work:
             t1 = time.perf_counter()
-            batch = _pack_batch(plan.g, table, chunk, T, order)
+            with trace.span("pack", T=T, tiles=len(chunk)):
+                batch = _pack_batch(plan.g, table, chunk, T, order)
             bill_pack(time.perf_counter() - t1)
             yield batch
         return
 
     def pack_job(T: int, chunk: np.ndarray) -> Tuple[TileBatch, float]:
         t1 = time.perf_counter()
-        batch = _pack_batch(plan.g, table, chunk, T, order)
+        with trace.span("pack", T=T, tiles=len(chunk)):
+            batch = _pack_batch(plan.g, table, chunk, T, order)
         return batch, time.perf_counter() - t1
 
     depth = max(2, 2 * workers) if prefetch is None else max(1, int(prefetch))
@@ -703,7 +719,12 @@ def stream_batches(source: Union[Graph, PipelinePlan], k: int,
             occ_peak = max(occ_peak, len(futs))
             occ_sum += len(futs) / depth
             occ_n += 1
-            batch, dt = futs.popleft().result()
+            fut = futs.popleft()
+            if fut.done():
+                batch, dt = fut.result()
+            else:
+                with trace.span("pack/wait", depth=len(futs) + 1):
+                    batch, dt = fut.result()
             nxt = next(it, None)
             if nxt is not None:
                 futs.append(ex.submit(pack_job, *nxt))

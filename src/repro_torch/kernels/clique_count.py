@@ -19,6 +19,11 @@ which takes the role ``lax_backend`` plays for counting in the reference.
 :func:`clique_count_items` gives the count per first-level branch
 (tile b, v), the items' counts summed over x, with its plain version
 :func:`clique_count_items_torch`.
+
+Both take every l >= 1 and any number of tiles B, as the reference does:
+for l > T no tile holds an l-clique and the wrappers return zeros without
+a launch, and a batch of :data:`LAUNCH_TILES` tiles or more goes to the
+card in several launches (an item packs its tile index into 16 bits).
 """
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ from .common import (MASK32, WORD, check_tiles, count_call, edges_within,
                      gt_masks, popcount_words, triangles_within_chunked,
                      unpack_bits, widen)
 
-#: largest l the CUDA kernel's stack holds (its kLMax)
-L_MAX = 16
+#: most tiles one launch of a DFS kernel takes (an item packs its tile
+#: index into 16 bits); the wrappers split a larger batch into launches
+LAUNCH_TILES = (1 << 16) - 1
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
@@ -148,8 +154,14 @@ def clique_count_items_torch(A: torch.Tensor, cand: torch.Tensor,
 
 
 def _check_l(l: int) -> None:
-    if not 1 <= l <= L_MAX:
-        raise ValueError(f"clique_count_tiles takes 1 <= l <= {L_MAX}, got {l}")
+    if l < 1:
+        raise ValueError(f"clique_count_tiles takes l >= 1, got {l}")
+
+
+def launch_chunks(B: int, limit: int = LAUNCH_TILES):
+    """The (lo, hi) tile ranges of the launches that cover a batch of B
+    tiles, at most ``limit`` tiles each."""
+    return [(lo, min(B, lo + limit)) for lo in range(0, B, limit)]
 
 
 def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
@@ -162,29 +174,35 @@ def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
         return clique_count_tiles_torch(A, cand, l)
     if A.device.type != "cuda":
         raise ValueError(f"no clique kernel for device {A.device}")
-    # out[:B] the counts, out[B:] the kernel's two item counters, all 0
-    out = torch.zeros(B + 2, dtype=torch.int32, device=A.device)
+    if l > T:  # no tile of T vertices holds an l-clique
+        return torch.zeros(B, dtype=torch.int64, device=A.device)
+    chunks = launch_chunks(B)
+    # out[:B] the counts, then each launch's two item counters, all 0
+    out = torch.zeros(B + 2 * len(chunks), dtype=torch.int32, device=A.device)
     if B:
-        items = item_list(B, T, A.device)
+        items = item_list(chunks[0][1], T, A.device)
         so = _build.lib()
-        with torch.cuda.device(A.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = so.clique_count_tiles_launch(
-                A.data_ptr(), cand.data_ptr(), out.data_ptr(), items.data_ptr(),
-                out[B:].data_ptr(), B, T, l, stream)
-        if rc:
-            raise RuntimeError(f"clique_count_tiles launch failed: CUDA "
-                               f"error {rc}")
-        count_call(__name__, "launches")
+        for i, (lo, hi) in enumerate(chunks):
+            with torch.cuda.device(A.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                rc = so.clique_count_tiles_launch(
+                    A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
+                    out[lo:hi].data_ptr(), items.data_ptr(),
+                    out[B + 2 * i:].data_ptr(), hi - lo, T, l, stream)
+            if rc:
+                raise RuntimeError(f"clique_count_tiles launch failed: CUDA "
+                                   f"error {rc}")
+            count_call(__name__, "launches")
     return out[:B].to(torch.int64) & MASK32
 
 
 def item_list(B: int, T: int, device: torch.device) -> torch.Tensor:
-    """Scratch for the kernels' list of items (tile, v, x): room for every
-    pair v <= x of every tile, packed into 32 bits (so B < 2**16)."""
-    if B >= 1 << 16:
-        raise ValueError(f"the DFS kernels take fewer than 65536 tiles a "
-                         f"batch, got {B}")
+    """Scratch for one launch's list of items (tile, v, x): room for every
+    pair v <= x of every tile, packed into 32 bits (so B < 2**16; the
+    wrappers split a larger batch into launches)."""
+    if B > LAUNCH_TILES:
+        raise ValueError(f"one launch of the DFS kernels takes at most "
+                         f"{LAUNCH_TILES} tiles, got {B}")
     return torch.empty(B * T * (T + 1) // 2, dtype=torch.int32, device=device)
 
 
@@ -199,17 +217,21 @@ def clique_count_items(A: torch.Tensor, cand: torch.Tensor,
     if A.device.type != "cuda":
         raise ValueError(f"no clique kernel for device {A.device}")
     per_v = torch.zeros((B, T), dtype=torch.int64, device=A.device)
-    if B:
-        items = item_list(B, T, A.device)
-        counters = torch.zeros(2, dtype=torch.int32, device=A.device)
+    if B and l <= T:
+        chunks = launch_chunks(B)
+        items = item_list(chunks[0][1], T, A.device)
+        counters = torch.zeros(2 * len(chunks), dtype=torch.int32,
+                               device=A.device)
         so = _build.lib()
-        with torch.cuda.device(A.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = so.clique_count_items_launch(
-                A.data_ptr(), cand.data_ptr(), per_v.data_ptr(),
-                items.data_ptr(), counters.data_ptr(), B, T, l, stream)
-        if rc:
-            raise RuntimeError(f"clique_count_items launch failed: CUDA "
-                               f"error {rc}")
-        count_call(__name__, "item_launches")
+        for i, (lo, hi) in enumerate(chunks):
+            with torch.cuda.device(A.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                rc = so.clique_count_items_launch(
+                    A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
+                    per_v[lo:hi].data_ptr(), items.data_ptr(),
+                    counters[2 * i:].data_ptr(), hi - lo, T, l, stream)
+            if rc:
+                raise RuntimeError(f"clique_count_items launch failed: CUDA "
+                                   f"error {rc}")
+            count_call(__name__, "item_launches")
     return per_v

@@ -24,6 +24,11 @@ order.
 
 :func:`clique_list_tiles` is the wrapper: a CUDA tensor goes to the
 kernel, a CPU tensor to the plain version :func:`clique_list_tiles_torch`.
+It takes every l >= 1 and any number of tiles, as the reference does: for
+l > T no tile holds an l-clique and it returns the empty triple without a
+launch, and a large batch goes to the card in several launches, each of at
+most :data:`~repro_torch.kernels.clique_count.LAUNCH_TILES` tiles and of a
+per-item count buffer within :data:`PER_X_BYTES`.
 """
 from __future__ import annotations
 
@@ -32,13 +37,15 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
-from .clique_count import item_list
+from .clique_count import LAUNCH_TILES, item_list, launch_chunks
 from .common import (MASK32, WORD, check_tiles, count_call, emit_edges,
                      emit_frontier, emit_triangles, gt_masks, member_rows,
                      popcount_words, unpack_bits, widen)
 
-#: largest l the CUDA kernel's stack holds (its kLMax)
-L_MAX = 16
+#: most bytes of one launch's per-item count buffer (B * T * T int64):
+#: the wrapper splits a batch into launches of at most
+#: ``PER_X_BYTES // (8 * T * T)`` tiles (2,048 at T = 256)
+PER_X_BYTES = 1 << 30
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
@@ -49,8 +56,8 @@ Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _check(l: int, capacity: int) -> None:
-    if not 1 <= l <= L_MAX:
-        raise ValueError(f"clique_list_tiles takes 1 <= l <= {L_MAX}, got {l}")
+    if l < 1:
+        raise ValueError(f"clique_list_tiles takes l >= 1, got {l}")
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
 
@@ -144,6 +151,13 @@ def _list_dfs(A64, c64, gt, l, capacity, buf, count, work) -> None:
             work["steps"][a] += any_bit.to(torch.int64)
 
 
+def launch_tiles(T: int) -> int:
+    """Most tiles of width T one launch of the list kernel takes: fewer
+    than 2**16, and few enough that the (B, T, T) int64 per-item buffer
+    stays within :data:`PER_X_BYTES`."""
+    return max(1, min(LAUNCH_TILES, PER_X_BYTES // (8 * T * T)))
+
+
 def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
                       capacity: int) -> Triple:
     """(B, T, W) int32, (B, W) int32 -> (buf (B, capacity, l) int32 local
@@ -152,8 +166,9 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
 
     On a CUDA tensor the buffer is allocated with ``torch.empty``: the
     kernel writes every row, zeros past ``min(count, capacity)`` included.
-    ``launches`` counts one per call that reaches the card, though the call
-    runs four device passes.
+    ``launches`` counts one per launch of the C entry point (one a call,
+    unless the batch is split into several), though each runs four device
+    passes.
     """
     B, T, _ = check_tiles(A, cand)
     _check(l, capacity)
@@ -161,24 +176,36 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
         return clique_list_tiles_torch(A, cand, l, capacity)
     if A.device.type != "cuda":
         raise ValueError(f"no list kernel for device {A.device}")
+    if l > T:  # no tile of T vertices holds an l-clique
+        zeros = torch.zeros(B, dtype=torch.int64, device=A.device)
+        return (torch.zeros((B, capacity, l), dtype=torch.int32,
+                            device=A.device), zeros, zeros.clone())
     buf = torch.empty((B, capacity, l), dtype=torch.int32, device=A.device)
     cnt = torch.empty(B, dtype=torch.int32, device=A.device)
     ovf = torch.empty(B, dtype=torch.int32, device=A.device)
     if B:
+        chunks = launch_chunks(B, launch_tiles(T))
+        n = chunks[0][1]
         # each item's count, then first rank, at [b, v, x]; the list of
-        # items; the list's length and the two passes' item counters
-        per_x = torch.zeros((B, T, T), dtype=torch.int64, device=A.device)
-        items = item_list(B, T, A.device)
-        counters = torch.zeros(3, dtype=torch.int32, device=A.device)
+        # items; per launch the list's length and the two passes' counters
+        per_x = torch.zeros((n, T, T), dtype=torch.int64, device=A.device)
+        items = item_list(n, T, A.device)
+        counters = torch.zeros(3 * len(chunks), dtype=torch.int32,
+                               device=A.device)
         so = _build.lib()
-        with torch.cuda.device(A.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = so.clique_list_tiles_launch(
-                A.data_ptr(), cand.data_ptr(), buf.data_ptr(), cnt.data_ptr(),
-                ovf.data_ptr(), per_x.data_ptr(), items.data_ptr(),
-                counters.data_ptr(), B, T, l, capacity, stream)
-        if rc:
-            raise RuntimeError(f"clique_list_tiles launch failed: CUDA "
-                               f"error {rc}")
-        count_call(__name__, "launches")
+        for i, (lo, hi) in enumerate(chunks):
+            with torch.cuda.device(A.device):
+                if i:  # the scan pass left first ranks in per_x
+                    per_x.zero_()
+                stream = torch.cuda.current_stream().cuda_stream
+                rc = so.clique_list_tiles_launch(
+                    A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
+                    buf[lo:hi].data_ptr(), cnt[lo:hi].data_ptr(),
+                    ovf[lo:hi].data_ptr(), per_x.data_ptr(), items.data_ptr(),
+                    counters[3 * i:].data_ptr(), hi - lo, T, l, capacity,
+                    stream)
+            if rc:
+                raise RuntimeError(f"clique_list_tiles launch failed: CUDA "
+                                   f"error {rc}")
+            count_call(__name__, "launches")
     return buf, cnt.to(torch.int64) & MASK32, ovf.to(torch.int64)

@@ -22,8 +22,10 @@
 //     with __ffs/__popc and no warp collective; the closes deal the set's
 //     vertices round robin over the group's lanes;
 //   - shared memory sized for the widest bin: only the todo stack lives in
-//     shared memory, (l - 5) words a thread, dynamic; A rows are read
-//     through the read-only path (a batch's A is at most 2 MB, inside L2);
+//     shared memory, (l - 5) words a thread, dynamic, so every l <= T runs
+//     (opted in above 48 KB, and in smaller blocks where 256 threads' stack
+//     would pass the card's 227 KB); A rows are read through the read-only
+//     path (a batch's A is at most 2 MB, inside L2);
 //   - the slowest tile sets the launch's time: a branch pass lists the
 //     items (first-level branches v-major, so the heavy low-v ones first)
 //     and groups take them from a global counter.  An item is a small
@@ -41,13 +43,11 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kLMax = 16;
-
 template <ItemOut kOut>
 int count_launch(const void* A, const void* cand, void* out, void* per, void* list,
                  void* counters, int B, int T, int l, void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (l < 1 || l > kLMax || B >= (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (l < 1 || l > T || B >= (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const uint32_t*>(A);
   const auto* c = static_cast<const uint32_t*>(cand);
   auto* li = static_cast<uint32_t*>(list);
@@ -55,13 +55,15 @@ int count_launch(const void* A, const void* cand, void* out, void* per, void* li
   auto* o = static_cast<uint32_t*>(out);
   auto* p = static_cast<unsigned long long*>(per);
   auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (T) {
-    case 32: launch_items<1, kOut>(a, c, li, ctr, o, p, B, l, st); break;
-    case 64: launch_items<2, kOut>(a, c, li, ctr, o, p, B, l, st); break;
-    case 128: launch_items<4, kOut>(a, c, li, ctr, o, p, B, l, st); break;
-    case 256: launch_items<8, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 32: err = launch_items<1, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 64: err = launch_items<2, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 128: err = launch_items<4, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 256: err = launch_items<8, kOut>(a, c, li, ctr, o, p, B, l, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -70,10 +72,10 @@ int count_launch(const void* A, const void* cand, void* out, void* per, void* li
 
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B,) uint32, list: room for
 // B * T * (T + 1) / 2 uint32 items, counters: two uint32, all device
-// pointers, out and counters zeroed by the caller; 1 <= l <= 16, B < 2^16,
+// pointers, out and counters zeroed by the caller; 1 <= l <= T, B < 2^16,
 // T in {32, 64, 128, 256}.  Launches the branch and item passes on `stream`
 // and returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
-// does not take).
+// does not take, or the error of the item pass's shared-memory opt-in).
 extern "C" int clique_count_tiles_launch(const void* A, const void* cand, void* out, void* list,
                                          void* counters, int B, int T, int l, void* stream) {
   using repro_torch::ItemOut;

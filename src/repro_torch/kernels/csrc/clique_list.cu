@@ -51,7 +51,6 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kLMax = 16;
 constexpr int kScanThreads = 256;
 
 // One tile's output rows.
@@ -171,7 +170,8 @@ __device__ __forceinline__ void emit_cliques(const Group<W>& g, const uint32_t* 
 }
 
 // The emit pass: every listed item with rows below capacity writes them.
-template <int W>
+// kFull as in item_kernel: a block of kItemThreads threads.
+template <int W, bool kFull>
 __global__ void __launch_bounds__(kItemThreads, kItemMinBlocks)
 list_emit_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
                  const uint32_t* __restrict__ list, const unsigned* __restrict__ n_list,
@@ -181,9 +181,10 @@ list_emit_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ ca
   constexpr int T = W * 32;
   const Group<W> g;
   const int levels = l > 4 ? l - 4 : 1;
+  const int threads = kFull ? kItemThreads : static_cast<int>(blockDim.x);
   uint32_t* stack = list_smem + threadIdx.x;  // level-major: no bank conflicts
-  const int groups = kItemThreads / W;
-  int* pf = reinterpret_cast<int*>(list_smem + levels * kItemThreads) + threadIdx.x / W;
+  const int groups = threads / W;
+  int* pf = reinterpret_cast<int*>(list_smem + levels * threads) + threadIdx.x / W;
   const unsigned n = *n_list;
   for (unsigned i = next_item(g, counter); i < n; i = next_item(g, counter)) {
     const uint32_t item = list[i];
@@ -204,11 +205,11 @@ list_emit_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ ca
     }
     g.sync();
     if (l <= 2) {
-      emit_cliques<W>(g, At, 0u, 0, 0, out, first, stack, kItemThreads, pf, groups);
+      emit_cliques<W>(g, At, 0u, 0, 0, out, first, stack, threads, pf, groups);
     } else {
       int nt;
       const uint32_t t = second_branch(g, At, cand + static_cast<size_t>(b) * W, v, x, &nt);
-      emit_cliques<W>(g, At, t, nt, l - 2, out, first, stack, kItemThreads, pf, groups);
+      emit_cliques<W>(g, At, t, nt, l - 2, out, first, stack, threads, pf, groups);
     }
     g.sync();  // the prefix is read before the next item writes it
   }
@@ -269,18 +270,28 @@ list_scan_kernel(unsigned long long* __restrict__ per_x, int* __restrict__ rows,
 }
 
 template <int W>
-void launch_list(const uint32_t* A, const uint32_t* cand, int* rows, uint32_t* count,
-                 uint32_t* overflow, unsigned long long* per_x, uint32_t* list,
-                 unsigned* counters, int B, int l, int capacity, cudaStream_t stream) {
-  launch_items<W, ItemOut::kItem>(A, cand, list, counters, nullptr, per_x, B, l, stream);
+cudaError_t launch_list(const uint32_t* A, const uint32_t* cand, int* rows, uint32_t* count,
+                        uint32_t* overflow, unsigned long long* per_x, uint32_t* list,
+                        unsigned* counters, int B, int l, int capacity, cudaStream_t stream) {
+  cudaError_t err =
+      launch_items<W, ItemOut::kItem>(A, cand, list, counters, nullptr, per_x, B, l, stream);
+  if (err != cudaSuccess) return err;
   list_scan_kernel<<<B, kScanThreads, 0, stream>>>(per_x, rows, count, overflow, W * 32, l,
                                                    capacity);
-  auto emit = list_emit_kernel<W>;
-  const int smem =
-      ((l > 4 ? l - 4 : 1) * kItemThreads + (l > 4 ? l - 2 : 2) * (kItemThreads / W)) *
-      static_cast<int>(sizeof(uint32_t));
-  emit<<<persistent_grid(emit, smem), kItemThreads, smem, stream>>>(
-      A, cand, list, counters, counters + 2, per_x, rows, l, capacity);
+  // the todo stack (l - 4 words a thread) and the prefix (l - 2 entries a
+  // group of W threads)
+  const int levels = l > 4 ? l - 4 : 1;
+  const int prefix = l > 4 ? l - 2 : 2;
+  int threads = 0, smem = 0;
+  err = item_block(
+      [&](int t) { return (levels * t + prefix * (t / W)) * static_cast<int>(sizeof(uint32_t)); },
+      &threads, &smem);
+  if (err != cudaSuccess) return err;
+  if (threads == kItemThreads)
+    return launch_persistent(list_emit_kernel<W, true>, threads, smem, stream, A, cand, list,
+                             counters, counters + 2, per_x, rows, l, capacity);
+  return launch_persistent(list_emit_kernel<W, false>, threads, smem, stream, A, cand, list,
+                           counters, counters + 2, per_x, rows, l, capacity);
 }
 
 }  // namespace
@@ -289,17 +300,17 @@ void launch_list(const uint32_t* A, const uint32_t* cand, int* rows, uint32_t* c
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B, capacity, l) int32,
 // count and overflow: (B,) uint32, per_x: B * T * T uint64 and counters:
 // three uint32, both zeroed by the caller, list: room for B * T * (T + 1) / 2
-// uint32 items, all device pointers; 1 <= l <= 16, capacity >= 1,
+// uint32 items, all device pointers; 1 <= l <= T, capacity >= 1,
 // B < 2^16, T in {32, 64, 128, 256}.  Launches four kernels on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
-// does not take).
+// does not take, or the error of a shared-memory opt-in).
 extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* out,
                                         void* count, void* overflow, void* per_x, void* list,
                                         void* counters, int B, int T, int l, int capacity,
                                         void* stream) {
   using namespace repro_torch;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (l < 1 || l > kLMax || capacity < 1 || B >= (1 << 16))
+  if (l < 1 || l > T || capacity < 1 || B >= (1 << 16))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const uint32_t*>(A);
   const auto* c = static_cast<const uint32_t*>(cand);
@@ -310,12 +321,14 @@ extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* o
   auto* li = static_cast<uint32_t*>(list);
   auto* ctr = static_cast<unsigned*>(counters);
   auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (T) {
-    case 32: launch_list<1>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
-    case 64: launch_list<2>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
-    case 128: launch_list<4>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
-    case 256: launch_list<8>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 32: err = launch_list<1>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 64: err = launch_list<2>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 128: err = launch_list<4>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 256: err = launch_list<8>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

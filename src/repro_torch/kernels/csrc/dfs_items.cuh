@@ -21,7 +21,8 @@
 //
 // A group of W = T/32 lanes runs one item; lane r owns word r of every
 // stack level, so at T = 32 every thread walks its own DFS and a warp runs
-// 32 items.
+// 32 items.  The todo stack is dynamic shared memory sized by l, so any
+// l <= T runs (item_block picks the block that holds it).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -39,6 +40,8 @@ constexpr int kItemThreads = 256;  // threads of a block of the item kernels
 // thread.  ptxas left to itself gave the W = 4 kernels 32 registers and
 // spilled (up to 28 bytes); with this bound no kernel spills.
 constexpr int kItemMinBlocks = 4;
+// Dynamic shared memory a kernel may use without opting in.
+constexpr int kDefaultSmemBytes = 48 * 1024;
 
 // An item packed into 32 bits: tile b (< 2^16), v and x (< 256 each).
 __device__ __forceinline__ uint32_t pack_item(int b, int v, int x) {
@@ -313,7 +316,10 @@ enum class ItemOut {
 };
 
 // The item pass: the l-cliques of every listed item, on a persistent grid.
-template <int W, ItemOut kOut>
+// kFull: the block has kItemThreads threads, so the stack stride is a
+// compile-time constant; else (a block that item_block halved) it is the
+// block's own size.
+template <int W, ItemOut kOut, bool kFull>
 __global__ void __launch_bounds__(kItemThreads, kItemMinBlocks)
 item_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
             const uint32_t* __restrict__ list, const unsigned* __restrict__ n_list,
@@ -323,6 +329,7 @@ item_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
   constexpr int T = W * 32;
   const Group<W> g;
   uint32_t* stack = stack_smem + threadIdx.x;  // level-major: no bank conflicts
+  const int stride = kFull ? kItemThreads : static_cast<int>(blockDim.x);
   const unsigned n = *n_list;
   for (unsigned i = next_item(g, counter); i < n; i = next_item(g, counter)) {
     const uint32_t item = list[i];
@@ -334,7 +341,7 @@ item_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
       const uint32_t* At = A + static_cast<size_t>(b) * T * W;
       int nt;
       const uint32_t t = second_branch(g, At, cand + static_cast<size_t>(b) * W, v, x, &nt);
-      c = cliques_in(g, At, t, nt, l - 2, stack, kItemThreads);
+      c = cliques_in(g, At, t, nt, l - 2, stack, stride);
     }
     if (g.r != 0 || c == 0ull) continue;
     if constexpr (kOut == ItemOut::kTile) {
@@ -352,31 +359,73 @@ item_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
   }
 }
 
-// Blocks for a persistent item kernel: as many as fit on the card at once.
+// Blocks for a persistent item kernel of `threads` threads and `smem_bytes`
+// of dynamic shared memory: as many as fit on the card at once.
 template <class Kernel>
-int persistent_grid(Kernel kernel, int smem_bytes) {
+int persistent_grid(Kernel kernel, int threads, int smem_bytes) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kItemThreads, smem_bytes);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes);
   return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+}
+
+// The block shape of an item kernel whose dynamic shared memory grows with
+// l: `smem_for(threads)` bytes for a block of `threads` (a multiple of 32).
+// A block has kItemThreads threads, halved (down to one warp) while its
+// shared memory would exceed what the card lets one block opt in to
+// (227 KB on the H100; the todo stack alone is (l - 5) KB at 256 threads,
+// so this happens only above l = 232, at T = 256).
+template <class SmemFor>
+cudaError_t item_block(SmemFor smem_for, int* threads, int* smem) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int t = kItemThreads;
+  while (t > 32 && smem_for(t) > optin) t /= 2;
+  *threads = t;
+  *smem = smem_for(t);
+  return *smem > optin ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// Launches a persistent item kernel of `threads` threads and `smem` bytes of
+// dynamic shared memory on `stream`, opted in to its size above the 48 KB
+// that a kernel gets without asking; returns the opt-in's error, if any.
+template <class Kernel, class... Args>
+cudaError_t launch_persistent(Kernel kernel, int threads, int smem, cudaStream_t stream,
+                              Args... args) {
+  if (smem > kDefaultSmemBytes) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<persistent_grid(kernel, threads, smem), threads, smem, stream>>>(args...);
+  return cudaSuccess;
 }
 
 // Runs the branch pass and then the item pass on `stream`: list holds room
 // for B * T * (T + 1) / 2 items, counters[0] and counters[1] start at 0.
+// Returns the error of the item kernel's shared-memory opt-in, if any.
 template <int W, ItemOut kOut>
-void launch_items(const uint32_t* A, const uint32_t* cand, uint32_t* list, unsigned* counters,
-                  uint32_t* out, unsigned long long* per, int B, int l, cudaStream_t stream) {
+cudaError_t launch_items(const uint32_t* A, const uint32_t* cand, uint32_t* list,
+                         unsigned* counters, uint32_t* out, unsigned long long* per, int B,
+                         int l, cudaStream_t stream) {
   const long long firsts = static_cast<long long>(W) * 32 * B;
   const int groups = kItemThreads / W;
   const int branch_blocks = static_cast<int>((firsts + groups - 1) / groups);
   auto branch = branch_kernel<W>;
   branch<<<branch_blocks, kItemThreads, 0, stream>>>(A, cand, list, counters, B, l);
-  auto kernel = item_kernel<W, kOut>;
-  // the todo stack of cliques_in at k = l - 2
-  const int smem = (l > 5 ? l - 5 : 1) * kItemThreads * static_cast<int>(sizeof(uint32_t));
-  kernel<<<persistent_grid(kernel, smem), kItemThreads, smem, stream>>>(
-      A, cand, list, counters, counters + 1, out, per, l);
+  // the todo stack of cliques_in at k = l - 2: l - 5 words a thread
+  const int levels = l > 5 ? l - 5 : 1;
+  int threads = 0, smem = 0;
+  const cudaError_t err = item_block(
+      [&](int t) { return levels * t * static_cast<int>(sizeof(uint32_t)); }, &threads, &smem);
+  if (err != cudaSuccess) return err;
+  if (threads == kItemThreads)
+    return launch_persistent(item_kernel<W, kOut, true>, threads, smem, stream, A, cand, list,
+                             counters, counters + 1, out, per, l);
+  return launch_persistent(item_kernel<W, kOut, false>, threads, smem, stream, A, cand, list,
+                           counters, counters + 1, out, per, l);
 }
 
 }  // namespace

@@ -19,9 +19,18 @@ PATH`` writes them to an NPZ, ``--max-out N`` stops after N).  It runs on
 the CUDA device; ``--device cpu`` runs the plain torch versions instead,
 with ``--devices N`` as N CPU lanes (``all`` is one).
 
+Observability and resilience, as in the reference launcher:
+``--trace-out PATH`` records a span trace of the run and writes it as
+Chrome/Perfetto trace_event JSON, ``--metrics-port PORT`` serves
+Prometheus ``/metrics`` on 127.0.0.1 for the run (0 = any free port),
+``--log-level`` sets the ``repro.*`` loggers' level, and ``--fault-plan
+SPEC`` arms seeded fault injection (``seed=7;*=0.1;kernel.launch=0.3``):
+counts and rows stay exact through retries (and, on CPU lanes,
+demotions to the host); on the card a launch whose retries run out
+raises.
+
 Still to be ported from the reference launcher: ``--backend``,
-``--plan-cache``, ``--tune-cache``, ``--fault-plan``, ``--trace-out``,
-``--metrics-port``, ``--log-level``.
+``--plan-cache``, ``--tune-cache``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,11 @@ from ..core import tiles as tiles_mod
 from ..core.engine_np import Stats
 from ..core.graph import Graph
 from ..data import graphs as gdata
+from ..obs import metrics as obs_metrics
+from ..obs import trace
+from ..obs.export import MetricsServer
+from ..obs.logging import LEVELS, get_logger, setup_logging
+from ..resilience import inject
 from ..runtime.dispatch import Dispatcher, dispatch_scheduled, resolve_devices
 
 
@@ -61,6 +75,20 @@ def parse_devices(spec: str, device):
     if device.type == "cpu":
         return [device] * (1 if spec == "all" else int(spec))
     return resolve_devices("all" if spec == "all" else int(spec))
+
+
+def _finish_obs(args, stats, metrics_server) -> None:
+    """Flush the run's observability: publish its stats, export the trace,
+    stop the metrics server."""
+    if stats is not None:
+        obs_metrics.observe_stats(stats)
+    if args.trace_out:
+        trace.export(args.trace_out)
+        print(f"trace: wrote {args.trace_out} "
+              f"({len(trace.events())} events, "
+              f"{trace.dropped()} dropped)")
+    if metrics_server is not None:
+        metrics_server.close()
 
 
 def main(argv=None) -> int:
@@ -98,20 +126,69 @@ def main(argv=None) -> int:
                          "(key 'cliques'); default is an in-memory buffer")
     ap.add_argument("--max-out", type=int, default=None,
                     help="with --list: stop after this many cliques")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="chaos mode: seeded fault-injection plan for "
+                         "repro_torch.resilience (e.g. 'seed=7;*=0.1;"
+                         "kernel.launch=0.3'); results stay exact via "
+                         "retry (and demotion on CPU lanes); also "
+                         "settable via REPRO_TORCH_FAULT_PLAN")
     ap.add_argument("--verify", action="store_true",
                     help="cross-check against the host engine")
+    ap.add_argument("--log-level", default="warning", choices=list(LEVELS),
+                    help="repro.* logger verbosity (obs/logging)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record a structured span trace of the whole run "
+                         "and write it as Chrome/Perfetto trace_event JSON "
+                         "(open at https://ui.perfetto.dev)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve Prometheus /metrics on 127.0.0.1:PORT for "
+                         "the run's duration (0 = ephemeral port)")
     args = ap.parse_args(argv)
 
-    g = load_graph(args.graph)
-    print(f"graph: n={g.n} m={g.m}")
-    device = engine_torch.resolve_device(args.device)
-    devices = parse_devices(args.devices, device)
-    t0 = time.perf_counter()
-    plan = pipeline.cached_plan(g, order=args.order)
-    t_plan = time.perf_counter() - t0
-    if args.list_mode:
-        return _list(args, g, plan, devices)
+    setup_logging(args.log_level)
+    log = get_logger("launch.clique")
+    if args.trace_out:
+        trace.configure(enabled=True)
+    metrics_server = None
+    if args.metrics_port is not None:
+        metrics_server = MetricsServer(port=args.metrics_port)
+        print(f"metrics: {metrics_server.address}/metrics")
+    if args.fault_plan:
+        inject.configure(args.fault_plan)
+        print(f"fault injection: {args.fault_plan}")
+    try:
+        g = load_graph(args.graph)
+        log.info("loaded %s: n=%d m=%d", args.graph, g.n, g.m)
+        print(f"graph: n={g.n} m={g.m}")
+        device = engine_torch.resolve_device(args.device)
+        devices = parse_devices(args.devices, device)
+        t0 = time.perf_counter()
+        plan = pipeline.cached_plan(g, order=args.order)
+        t_plan = time.perf_counter() - t0
+        if args.list_mode:
+            rc, stats = _list(args, g, plan, devices)
+        else:
+            rc, stats = _count(args, g, plan, devices, t_plan)
+        _finish_obs(args, stats, metrics_server)
+        metrics_server = None
+        return rc
+    finally:
+        # an in-process caller gets the process back as it was: the
+        # tracer off, no fault plan armed, no server left listening
+        if metrics_server is not None:
+            metrics_server.close()
+        if args.trace_out:
+            trace.configure(enabled=False)
+        if args.fault_plan:
+            inject.configure(None)
 
+
+def _count(args, g: Graph, plan: pipeline.PipelinePlan, devices,
+           t_plan: float):
+    """Counting: stream the batches through the dispatcher (online or
+    offline LPT); with ``--verify``, hold the total against the host
+    engine.  Returns (exit code, the run's Stats)."""
     l = args.k - 2
     mesh = devices if args.shard_map else None
     stats = Stats()
@@ -181,19 +258,20 @@ def main(argv=None) -> int:
           f"(plan {t_plan:.2f}s, front-to-finish {t_count:.2f}s, "
           f"of which extract+pack {t_pack:.2f}s, "
           f"device {stage.get('device', 0.0):.2f}s)")
+    print(f"retries={stats.retries} demotions={stats.demotions}")
     if args.verify:
         ref = ebbkc.count(g, args.k, order=args.order, plan=plan,
                           backend="host").count
         print(f"host engine: {ref}  match={ref == total}")
         if ref != total:
-            return 1
-    return 0
+            return 1, stats
+    return 0, stats
 
 
-def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices) -> int:
+def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices):
     """``--list``: stream the cliques into the sink; with ``--verify``,
     hold the rows as a set against the host recursion's and their number
-    against the host count."""
+    against the host count.  Returns (exit code, the run's Stats)."""
     sink = (listing.NpzSink(args.sink, args.k, max_out=args.max_out)
             if args.sink else listing.ArraySink(args.k, max_out=args.max_out))
     stage = {}
@@ -214,9 +292,10 @@ def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices) -> int:
           f"overflowed={st.overflowed_tiles} devices={len(devices)} "
           f"backend={st.backend} "
           f"pack_workers={st.pack_workers} device={stage.get('device', 0.0):.2f}s "
-          f"decode={stage.get('decode', 0.0):.2f}s")
+          f"decode={stage.get('decode', 0.0):.2f}s "
+          f"retries={st.retries} demotions={st.demotions}")
     if not args.verify:
-        return 0
+        return 0, st
     rows = (np.load(args.sink)["cliques"] if args.sink else sink.result())
     host, _ = ebbkc.list_cliques(g, args.k, order=args.order, plan=plan,
                                  backend="host")
@@ -229,7 +308,7 @@ def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices) -> int:
           and len(got_set) == rows.shape[0] and got_set <= host_set
           and (args.max_out is not None or got_set == host_set))
     print(f"host count: {ref}  match={ok}")
-    return 0 if ok else 1
+    return (0 if ok else 1), st
 
 
 if __name__ == "__main__":

@@ -32,15 +32,35 @@ Counts are exact and invariant to lane count, placement and staging mode:
 every step returns (hard, nv, t, f) partials and the host reduces them in
 int64 (including the Section 5.1 early-termination closed form).
 
-Left out of this port, each waiting for its own module: the ``trace``
-spans and ``obs.profile`` kernel notes (A9); ``inject.fire`` fault sites,
-``fault_retry`` retries and the backend demotion ladder (A7) -- here a
-launch is one rung, and a failed build or launch raises out of
-``submit`` / ``finish``, with no fallback to the CPU or a plain version;
-``engine_jax.bucket_rows``, deliberately not ported (an eager CUDA launch
-compiles nothing per shape); and ``kops.consume_compile_s`` /
-``drain_tune_events`` (A6).  ``Stats.kernel_compile_s`` bills the CUDA
-library's build at first use instead.
+Observability, as in the reference: the ``kernel/compile`` span around
+the CUDA library's build at first use (``Stats.kernel_compile_s``),
+``device/stage``, ``device/harvest`` (with the batch's kernel signature,
+flops and bytes) and ``combine`` on the counting side; ``device/stage``,
+``device/sizing``, ``device/wait``, ``device/relist`` and ``decode`` on
+the listing side; ``obs.profile.note_kernel`` for the build and for every
+harvest (``execute_s`` is the host's blocked seconds, not device time).
+
+Resilience, as in the reference, with two deliberate differences.  The
+``device.stage`` and ``kernel.launch`` fault sites fire before every
+launch, ``device.harvest``, ``decode`` and ``sink.write`` are absorbed in
+place (``fault_retry.consume``), and a launch that meets an injected fault
+is retried under ``fault_retry.DEFAULT_POLICY``, keeping its batch's FIFO
+position (``Stats.retries``).  What happens once the policy is used up
+depends on the lane (:meth:`_Lanes._run`).  On a CUDA lane the fault
+raises out of ``submit`` / ``finish``: the card's work never moves to a
+plain version or to the host.  On a CPU lane, where the kernel wrapper
+is the plain version anyway, the batch goes down the reference's ladder
+(``fault_retry.COUNT_LADDER`` / ``LIST_LADDER``, each rung retried in
+turn) to the host recursion -- ``count_rec_C`` partials for counting,
+``listing.host_list_triple`` for listing -- so counts and rows never
+change (``Stats.demotions``).  And unlike the reference, which retries
+and demotes on any ``Exception``, only ``inject.FaultInjected`` is
+retried or demoted here: a real failure -- a failed build, a refused
+launch, a device fault -- raises at once.
+
+Left out of this port: ``engine_jax.bucket_rows``, deliberately (an eager
+CUDA launch compiles nothing per shape), and ``kops.consume_compile_s`` /
+``drain_tune_events`` (A6).
 """
 from __future__ import annotations
 
@@ -59,8 +79,13 @@ import torch
 from ..convert import batch_to_torch
 from ..core import engine_torch, listing, pipeline
 from ..core.engine_np import Stats
+from ..core.engine_np import count_rec_C
 from ..kernels import _build
 from ..kernels import ops as kops
+from ..obs import profile as obs_profile
+from ..obs import trace
+from ..resilience import inject
+from ..resilience import retry as fault_retry
 from .clique_scheduler import schedule_batches, tile_costs
 
 DeviceSpec = Union[None, int, str, Sequence]
@@ -243,8 +268,12 @@ def _consume_stream(disp, stream, on_spill, stop=None) -> Tuple[int, int]:
 
 
 class _Lanes:
-    """What both dispatchers share: the lanes, the online-LPT loads, and
-    the one-time build of the CUDA kernel library."""
+    """What both dispatchers share: the lanes, the online-LPT loads, the
+    one-time build of the CUDA kernel library, and the fault policy with
+    its accounting."""
+
+    #: the kernel family in this dispatcher's signatures ("count"/"list")
+    _op = ""
 
     def __init__(self, l: int, devices: List[torch.device], stats: Stats):
         if l < 1:
@@ -259,22 +288,77 @@ class _Lanes:
         self.placements: List[int] = []
         self._loads = np.zeros(len(devices))
         self._built = False
+        # stats are written by the submitting thread and, in listing, by
+        # the decode worker
+        self._acct_lock = threading.Lock()
 
     @property
     def n_devices(self) -> int:
         """Number of lanes this dispatcher places batches on."""
         return len(self.lanes)
 
-    def _build_once(self) -> None:
+    def _sig(self, B: int, T: int) -> str:
+        """Kernel-signature label for profiling attribution (the
+        reference's ``count[l=..,T=..,B=..,backend=..]``)."""
+        return (f"{self._op}[l={self.l},T={T},B={B},"
+                f"backend={self.stats.backend}]")
+
+    def _build_once(self, batch: pipeline.TileBatch) -> None:
         """Build (or load) the CUDA kernel library before the first CUDA
-        launch, billing the seconds to ``Stats.kernel_compile_s``; a
-        failed build raises here, out of ``submit``."""
+        launch, billing the seconds to ``Stats.kernel_compile_s`` and to
+        the first batch's kernel signature; a failed build raises here,
+        out of ``submit``."""
         if self._built or all(ln.stream is None for ln in self.lanes):
             return
+        sig = self._sig(batch.B, batch.T)
         t0 = time.perf_counter()
-        _build.lib()
-        self.stats.kernel_compile_s += time.perf_counter() - t0
+        with trace.span("kernel/compile", sig=sig):
+            _build.lib()
+        dt = time.perf_counter() - t0
+        self.stats.kernel_compile_s += dt
+        obs_profile.note_kernel(sig, compile_s=dt)
         self._built = True
+
+    def _note_retry(self, attempt: int, exc: BaseException) -> None:
+        """Per-batch attempt accounting (``fault_retry.call`` on_retry),
+        from the submitting thread or the decode worker."""
+        with self._acct_lock:
+            self.stats.retries += 1
+        trace.instant("resilience/retry", attempt=attempt,
+                      error=type(exc).__name__)
+
+    def _note_demotion(self, frm: str, to: Optional[str],
+                       exc: BaseException) -> None:
+        """Count one rung of the backend ladder given up."""
+        with self._acct_lock:
+            self.stats.demotions += 1
+        trace.instant("resilience/demote", frm=frm, to=to or "host",
+                      error=type(exc).__name__)
+
+    def _run(self, on_card: bool, mode: str, launch, host, token: str):
+        """``launch()`` under the fault policy; returns its result or, on
+        CPU lanes whose ladder gave up, ``host()``'s.
+
+        An injected fault is retried under ``fault_retry.DEFAULT_POLICY``.
+        With ``on_card`` the fault raises once the policy is used up.
+        Otherwise each rung of the ``mode`` ladder ("count" or "list") is
+        retried in turn -- on a CPU lane every rung runs the same plain
+        version -- and then ``host()`` finishes the batch.  Any other
+        exception propagates at once."""
+        if on_card:
+            return fault_retry.call(launch, token=token,
+                                    on_retry=self._note_retry)
+        rung: Optional[str] = (fault_retry.COUNT_LADDER if mode == "count"
+                               else fault_retry.LIST_LADDER)[0]
+        while rung is not None:
+            try:
+                return fault_retry.call(launch, token=token,
+                                        on_retry=self._note_retry)
+            except inject.FaultInjected as exc:
+                nxt = fault_retry.demote(mode, rung)
+                self._note_demotion(rung, nxt, exc)
+                rung = nxt
+        return host()
 
     def _place(self, batch: pipeline.TileBatch, device: Optional[int]) -> int:
         """Online LPT (least-loaded lane under the scheduler cost model),
@@ -295,6 +379,7 @@ class _InFlight:
     parts: list
     rows: int = 0  # un-padded batch rows (slice bound for routed harvest)
     route: object = None  # per-request delivery callback, or None
+    T: int = 0  # tile width (kernel-signature attribution)
 
 
 class Dispatcher(_Lanes):
@@ -310,6 +395,8 @@ class Dispatcher(_Lanes):
                 ...  # spill to host recursion
         total = disp.finish()
     """
+
+    _op = "count"
 
     def __init__(
         self,
@@ -340,12 +427,32 @@ class Dispatcher(_Lanes):
 
     def _launch(self, A: np.ndarray, cand: np.ndarray, lane: Lane):
         """Stage one (shard of a) batch on ``lane``, launch its count step
-        and its copy back; returns (event, host partials)."""
+        and its copy back; returns (event, host partials).  Fires the
+        ``device.stage`` and ``kernel.launch`` fault sites."""
         with lane.context():
+            inject.fire("device.stage")
             tA, tc = batch_to_torch(A, cand, lane.device)
+            inject.fire("kernel.launch")
             out = engine_torch.count_packed(tA, tc, self.l,
                                             method=self.method, et=self.et)
             return lane.to_host(out)
+
+    def _host_partials(self, batch: pipeline.TileBatch):
+        """Count ``batch`` on the host recursion (a CPU lane's last rung).
+
+        Returns numpy ``(hard, nv, t, f)`` partials that
+        ``engine_torch.combine_counts`` finishes to the exact same totals
+        as a device step: ``hard`` carries the true per-tile count and
+        ``t`` is pinned above the 2-plex threshold, so the
+        early-termination closed form adds nothing.
+        """
+        hard = np.zeros(batch.B, dtype=np.int64)
+        for b in range(batch.B):
+            s = int(batch.sizes[b])
+            rows = listing._rows_from_packed(batch.A[b], s)
+            hard[b] = count_rec_C(rows, (1 << s) - 1, self.l, self.stats)
+        zeros = np.zeros(batch.B, dtype=np.int64)
+        return hard, zeros, np.full(batch.B, 3, dtype=np.int64), zeros
 
     def submit(
         self,
@@ -368,37 +475,56 @@ class Dispatcher(_Lanes):
 
         Thread safety: all ``submit``/``drain``/``finish`` calls must come
         from one thread.
+
+        Resilience: a stage or launch that meets an injected fault is
+        retried in place (:meth:`_Lanes._run`; a row-sharded batch as a
+        whole), so the batch keeps its FIFO position.
         """
-        self._build_once()
-        if self.mesh is not None:
-            d = -1
-            n = self._n_shards
-            A = _pad_rows(batch.A, n)
-            cand = _pad_rows(batch.cand, n)
-            shard_rows = A.shape[0] // n
-            events, parts = [], []
-            for i, lane in enumerate(self.lanes):
-                rows = slice(i * shard_rows, (i + 1) * shard_rows)
-                event, host = self._launch(A[rows], cand[rows], lane)
-                events.append(event)
-                parts.append(host)
-            per_dev = np.bincount(
-                np.minimum(np.arange(batch.B) // shard_rows, n - 1),
-                minlength=n,
-            )
-        else:
-            d = self._place(batch, device)
-            event, host = self._launch(batch.A, batch.cand, self.lanes[d])
-            events, parts = [event], [host]
-            per_dev = np.zeros(self.n_devices, dtype=np.int64)
-            per_dev[d] = batch.B
+        with trace.span("device/stage", B=batch.B, T=batch.T):
+            self._build_once(batch)
+            if self.mesh is not None:
+                d = -1
+                n = self._n_shards
+                A = _pad_rows(batch.A, n)
+                cand = _pad_rows(batch.cand, n)
+                shard_rows = A.shape[0] // n
+
+                def launch():
+                    events, parts = [], []
+                    for i, lane in enumerate(self.lanes):
+                        rows = slice(i * shard_rows, (i + 1) * shard_rows)
+                        event, host = self._launch(A[rows], cand[rows], lane)
+                        events.append(event)
+                        parts.append(host)
+                    return events, parts
+
+                events, parts = self._run(
+                    any(ln.stream is not None for ln in self.lanes), "count",
+                    launch, lambda: ([None], [self._host_partials(batch)]),
+                    "count.mesh")
+                per_dev = np.bincount(
+                    np.minimum(np.arange(batch.B) // shard_rows, n - 1),
+                    minlength=n,
+                )
+            else:
+                d = self._place(batch, device)
+                lane = self.lanes[d]
+                event, host = self._run(
+                    lane.stream is not None, "count",
+                    lambda: self._launch(batch.A, batch.cand, lane),
+                    lambda: (None, self._host_partials(batch)),
+                    "count.launch")
+                events, parts = [event], [host]
+                per_dev = np.zeros(self.n_devices, dtype=np.int64)
+                per_dev[d] = batch.B
         self.placements.append(d)
         self.tiles += batch.B
         _account_devices(self.stats, per_dev, batch.T)
         if not self._inflight:
             # in-flight window (re)opens now; overlap accrues from here
             self._overlap_mark = time.perf_counter()
-        self._inflight.append(_InFlight(d, events, parts, batch.B, route))
+        self._inflight.append(_InFlight(d, events, parts, batch.B, route,
+                                        batch.T))
         if not self.async_staging:
             self._drain()
         else:
@@ -414,17 +540,28 @@ class Dispatcher(_Lanes):
         # Synchronous staging hides nothing by construction.
         if self.async_staging:
             self.stats.staging_overlap_s += max(0.0, t0 - self._overlap_mark)
-        for event in p.events:
-            _wait(event)
-        out = [np.concatenate([np.asarray(part[i]) for part in p.parts])
-               for i in range(4)]
+        sig = self._sig(p.rows, p.T)
+        flops, nbytes = batch_flops(p.rows, p.T), batch_bytes(p.rows, p.T)
+        with trace.span("device/harvest", device=p.device, sig=sig,
+                        flops=flops, bytes=nbytes):
+            # an injected harvest fault is pure (the staged result still
+            # exists) and is absorbed in place; a real wait failure raises
+            fault_retry.consume("device.harvest", on_retry=self._note_retry)
+            for event in p.events:
+                _wait(event)
+            out = [np.concatenate([np.asarray(part[i]) for part in p.parts])
+                   for i in range(4)]
         t1 = time.perf_counter()
+        obs_profile.note_kernel(sig, execute_s=t1 - t0, calls=1, flops=flops,
+                                nbytes=nbytes)
         self._overlap_mark = t1  # blocked interval [t0, t1] is not overlap
-        if p.route is None:
-            self.total += engine_torch.combine_counts(*out, self.l, self.et)
-        else:
-            # padding appends rows, so a head slice removes it
-            p.route(*(x[: p.rows].astype(np.int64) for x in out))
+        with trace.span("combine", routed=p.route is not None):
+            if p.route is None:
+                self.total += engine_torch.combine_counts(*out, self.l,
+                                                          self.et)
+            else:
+                # padding appends rows, so a head slice removes it
+                p.route(*(x[: p.rows].astype(np.int64) for x in out))
         t2 = time.perf_counter()
         if self.stage_times is not None:
             st = self.stage_times
@@ -499,7 +636,16 @@ class ListDispatcher(_Lanes):
     batch's lane context.  The decode backlog is bounded
     (``max_inflight * n_devices`` jobs) because each job pins its device
     buffers.
+
+    Resilience: staging and every launch (the sizing count pass, the list
+    kernel, the speculative retry) meet the fault sites and are retried in
+    place (:meth:`_Lanes._run`).  On a CPU lane a batch whose staging,
+    sizing or list launch gave up is listed by
+    ``listing.host_list_triple`` in its FIFO slot, so the decoded rows are
+    byte-identical to a fault-free run; on a CUDA lane the fault raises.
     """
+
+    _op = "list"
 
     def __init__(
         self,
@@ -544,9 +690,6 @@ class ListDispatcher(_Lanes):
         )
         self._decoding: Deque[concurrent.futures.Future] = collections.deque()
         self._decode_depth = max(2, self.max_inflight * self.n_devices)
-        # stats/stage_times are written by both the consumer thread
-        # (placement, sizing waits) and the decode worker
-        self._acct_lock = threading.Lock()
 
     def _add_time(self, key: str, amount) -> None:
         """Add to ``stage_times[key]`` (seconds, or bytes for
@@ -556,14 +699,43 @@ class ListDispatcher(_Lanes):
                 st = self.stage_times
                 st[key] = st.get(key, 0) + amount
 
+    def _stage(self, batch: pipeline.TileBatch, lane: Lane):
+        """Fire the stage site and copy the batch onto ``lane``."""
+        inject.fire("device.stage")
+        with lane.context():
+            return batch_to_torch(batch.A, batch.cand, lane.device)
+
+    def _count_pass(self, lane: Lane, A: torch.Tensor, cand: torch.Tensor):
+        """Fire the launch site and start the sizing count pass, with the
+        copy of its counts back; returns (event, (host counts,))."""
+        inject.fire("kernel.launch")
+        with lane.context():
+            return lane.to_host((kops.count_tiles(A, cand, self.l),))
+
     def _list(self, lane: Lane, A: torch.Tensor, cand: torch.Tensor,
               cap: int):
-        """Launch one list kernel at capacity ``cap`` on ``lane`` and the
-        copy of its triple back; returns (event, host triple).  Called by
-        the consumer thread and, for the speculative retry, the decode
-        worker: either way inside the lane's device and stream."""
+        """Fire the launch site, launch one list kernel at capacity ``cap``
+        on ``lane`` and the copy of its triple back; returns (event, host
+        triple).  Called by the consumer thread and, for the speculative
+        retry, the decode worker: either way inside the lane's device and
+        stream."""
+        inject.fire("kernel.launch")
         with lane.context():
             return lane.to_host(kops.list_tiles(A, cand, self.l, cap))
+
+    def _host_list(self, batch: pipeline.TileBatch):
+        """A CPU lane's host rung: (no event, the batch's triple from
+        ``listing.host_list_triple``, the host recursion in the kernel's
+        emission order), so it decodes byte-identically."""
+        return None, listing.host_list_triple(batch, self.l)
+
+    def _launch_list(self, batch: pipeline.TileBatch, lane: Lane,
+                     acand: tuple, cap: int):
+        """One list launch on the staged (A, cand) ``acand``; returns
+        (event, triple)."""
+        return self._run(lane.stream is not None, "list",
+                         lambda: self._list(lane, *acand, cap),
+                         lambda: self._host_list(batch), "list.launch")
 
     def submit(
         self,
@@ -590,21 +762,31 @@ class ListDispatcher(_Lanes):
         if route is None and self.sink is None:
             raise ValueError("emit mode requires a CliqueSink (or per-"
                              "batch route callbacks)")
-        self._build_once()
-        d = self._place(batch, device)
-        self.placements.append(d)
-        self.tiles += batch.B
-        per_dev = np.zeros(self.n_devices, dtype=np.int64)
-        per_dev[d] = batch.B
-        with self._acct_lock:
-            _account_devices(self.stats, per_dev, batch.T)
-        lane = self.lanes[d]
-        with lane.context():
-            A, cand = batch_to_torch(batch.A, batch.cand, lane.device)
+        with trace.span("device/stage", B=batch.B, T=batch.T):
+            self._build_once(batch)
+            d = self._place(batch, device)
+            self.placements.append(d)
+            self.tiles += batch.B
+            per_dev = np.zeros(self.n_devices, dtype=np.int64)
+            per_dev[d] = batch.B
+            with self._acct_lock:
+                _account_devices(self.stats, per_dev, batch.T)
+            lane = self.lanes[d]
+            on_card = lane.stream is not None
+            # None: a CPU lane's staging (or sizing) gave up, and the host
+            # lists the batch in its FIFO slot
+            acand = self._run(on_card, "list",
+                              lambda: self._stage(batch, lane), lambda: None,
+                              "list.stage")
             if self.capacity is None or self.capacity == "sized":
                 # async count pass; readiness is probed at promotion time
-                sizing = lane.to_host((kops.count_tiles(A, cand, self.l),))
-                self._pending.append((d, batch, (A, cand), sizing, route))
+                staged = None
+                if acand is not None:
+                    staged = self._run(
+                        on_card, "count",
+                        lambda: (acand, self._count_pass(lane, *acand)),
+                        lambda: None, "list.sizing")
+                self._pending.append((d, batch, staged, route))
             else:
                 if self.capacity == "speculative":  # ratchet guess
                     cap = min(self._cap_ratchet.get(batch.T,
@@ -612,8 +794,9 @@ class ListDispatcher(_Lanes):
                               self.max_capacity)
                 else:
                     cap = max(1, int(self.capacity))
-                out = self._list(lane, A, cand, cap)
-                self._inflight.append((d, batch, (A, cand), out, route))
+                out = (self._host_list(batch) if acand is None
+                       else self._launch_list(batch, lane, acand, cap))
+                self._inflight.append((d, batch, acand, out, route))
         self._promote(block=False)
         if not self.async_staging:
             self._drain()
@@ -634,16 +817,24 @@ class ListDispatcher(_Lanes):
         through (used when the harvest side runs dry).
         """
         while self._pending:
-            d, batch, acand, (event, (hard,)), route = self._pending[0]
+            d, batch, staged, route = self._pending[0]
+            if staged is None:
+                self._pending.popleft()
+                self._inflight.append((d, batch, None,
+                                       self._host_list(batch), route))
+                block = False
+                continue
+            acand, (event, (hard,)) = staged
             if not block and not _is_ready(event):
                 break
             t0 = time.perf_counter()
-            _wait(event)  # blocks only until THIS batch's counts land
-            counts = hard.numpy()
+            with trace.span("device/sizing", B=batch.B, T=batch.T):
+                _wait(event)  # blocks only until THIS batch's counts land
+                counts = np.asarray(hard)
             self._add_time("device", time.perf_counter() - t0)
             self._pending.popleft()
             cap = listing.capacity_for(counts, self.max_capacity)
-            out = self._list(self.lanes[d], *acand, cap)
+            out = self._launch_list(batch, self.lanes[d], acand, cap)
             self._inflight.append((d, batch, acand, out, route))
             block = False  # only the head is ever forced
 
@@ -659,9 +850,16 @@ class ListDispatcher(_Lanes):
         submission is deterministic sink order with no further
         synchronization."""
         t0 = time.perf_counter()
+        sig = self._sig(batch.B, batch.T)
+        flops = batch_flops(batch.B, batch.T)
+        nbytes = batch_bytes(batch.B, batch.T)
         event, triple = out
-        _wait(event)
-        bufs, cnt, ovf = (x.numpy() for x in triple)
+        with trace.span("device/wait", sig=sig, flops=flops, bytes=nbytes):
+            # an injected harvest fault is pure and absorbed in place; a
+            # real wait failure raises
+            fault_retry.consume("device.harvest", on_retry=self._note_retry)
+            _wait(event)
+            bufs, cnt, ovf = (np.asarray(x) for x in triple)
         if self.capacity == "speculative":
             # the kernel reported true counts, so a too-small guess is
             # listed once more on the device at the exact rounded size --
@@ -672,22 +870,31 @@ class ListDispatcher(_Lanes):
                 self._cap_ratchet.get(batch.T, 1), true_cap
             )
             if ovf.any() and true_cap > bufs.shape[1]:
-                event, triple = self._list(self.lanes[d], *acand, true_cap)
-                _wait(event)
-                bufs, cnt, ovf = (x.numpy() for x in triple)
+                with trace.span("device/relist", B=batch.B, T=batch.T,
+                                capacity=true_cap):
+                    event, triple = self._launch_list(
+                        batch, self.lanes[d], acand, true_cap)
+                    _wait(event)
+                    bufs, cnt, ovf = (np.asarray(x) for x in triple)
                 with self._acct_lock:
                     self.stats.emit_retries += 1
         t1 = time.perf_counter()
+        obs_profile.note_kernel(sig, execute_s=t1 - t0, calls=1, flops=flops,
+                                nbytes=nbytes)
         relist: dict = {}
-        if route is not None:
-            emitted = int(route(batch, bufs, cnt, ovf))
-            t2 = time.perf_counter()
-        else:
-            arr = listing.decode_batch(batch, bufs, cnt, ovf, self.l,
-                                       self.stats, et_t=self.et_t,
-                                       stage_times=relist)
-            t2 = time.perf_counter()
-            emitted = self.sink.emit(arr)
+        fault_retry.consume("decode", on_retry=self._note_retry)
+        with trace.span("decode", B=batch.B, T=batch.T,
+                        routed=route is not None):
+            if route is not None:
+                emitted = int(route(batch, bufs, cnt, ovf))
+                t2 = time.perf_counter()
+            else:
+                arr = listing.decode_batch(batch, bufs, cnt, ovf, self.l,
+                                           self.stats, et_t=self.et_t,
+                                           stage_times=relist)
+                t2 = time.perf_counter()
+                fault_retry.consume("sink.write", on_retry=self._note_retry)
+                emitted = self.sink.emit(arr)
         t3 = time.perf_counter()
         with self._acct_lock:
             self.stats.emitted_cliques += emitted
@@ -703,6 +910,7 @@ class ListDispatcher(_Lanes):
         worker, keeping their FIFO position relative to batch decodes."""
 
         def job() -> None:
+            fault_retry.consume("sink.write", on_retry=self._note_retry)
             emitted = self.sink.emit(arr)
             with self._acct_lock:
                 self.stats.emitted_cliques += emitted

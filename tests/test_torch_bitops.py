@@ -150,6 +150,8 @@ def test_no_source_of_the_port_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    # the observability and resilience layers are sources like the rest
+    assert {"obs", "resilience"} <= {p.parent.name for p in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

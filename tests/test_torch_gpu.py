@@ -20,7 +20,8 @@ from repro_torch.core.bitops import pack_bits
 from repro_torch.data import graphs
 from repro_torch.kernels import (clique_count, clique_list, intersect, ops,
                                  triangle_mm)
-from torch_cases import structured_triangle_tiles
+from torch_cases import (big_clique_tiles, planted_clique_tiles,
+                         structured_triangle_tiles)
 
 pytestmark = pytest.mark.gpu
 
@@ -155,8 +156,13 @@ def test_kernel_wrappers_reject_bad_input_on_card(cuda):
         triangle_mm.triangle_count_tiles(A.to(torch.int64), cand)
     with pytest.raises(ValueError):
         clique_count.clique_count_tiles(A, cand.cpu(), 4)
-    with pytest.raises(ValueError):
-        clique_count.clique_count_tiles(A, cand, clique_count.L_MAX + 1)
+    # l > T: no tile of 32 vertices holds a 33-clique, so zeros and no launch
+    before = ops.launch_counts()["clique_count_tiles"]
+    zeros = clique_count.clique_count_tiles(A, cand, 33)
+    assert zeros.shape == (4,) and zeros.device.type == "cuda"
+    assert not zeros.any()
+    assert not clique_count.clique_count_items(A, cand, 33).any()
+    assert ops.launch_counts()["clique_count_tiles"] == before
     empty = clique_count.clique_count_tiles(A[:0], cand[:0], 4)
     assert empty.shape == (0,) and empty.device.type == "cuda"
     # an int32 view 4 bytes off a 16-byte boundary: the row loads would
@@ -241,8 +247,14 @@ def test_edge_candidates_match_plain_on_card(cuda, T):
 
 def test_list_wrappers_reject_bad_input_on_card(cuda):
     A, cand = (x.to(cuda) for x in cliquey_tiles(1, 4, 32))
-    with pytest.raises(ValueError):
-        clique_list.clique_list_tiles(A, cand, clique_list.L_MAX + 1, 4)
+    # l > T: the reference's empty triple, zero buffer of its shape, and
+    # no launch
+    before = ops.launch_counts()["clique_list_tiles"]
+    buf, cnt, ovf = clique_list.clique_list_tiles(A, cand, 33, 4)
+    assert buf.shape == (4, 4, 33) and buf.dtype == torch.int32
+    assert buf.device.type == "cuda" and not buf.any()
+    assert not cnt.any() and not ovf.any()
+    assert ops.launch_counts()["clique_list_tiles"] == before
     with pytest.raises(ValueError):
         clique_list.clique_list_tiles(A, cand, 4, 0)
     with pytest.raises(ValueError):
@@ -450,3 +462,171 @@ def test_decode_worker_waits_for_each_copy_back(cuda):
                                  capacity=16384, max_inflight=1)
             assert np.array_equal(got, want), lanes
             assert st.overflowed_tiles == 0
+
+
+@pytest.mark.parametrize("capacity", [None, "speculative"])
+def test_injected_launch_faults_raise_on_card(cuda, capacity):
+    """Every launch failing on a CUDA lane: the first batch is retried on
+    the kernel under DEFAULT_POLICY and the fault raises; nothing runs the
+    plain version or the host, and nothing is demoted."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.engine_np import Stats
+    from repro_torch.resilience import inject, retry
+    from repro_torch.runtime import dispatch
+    g = graphs.rmat_graph(9, edge_factor=16, seed=7)
+    batch = next(b for b in pipeline.stream_batches(g, 5, pack_workers=0)
+                 if isinstance(b, pipeline.TileBatch))
+    attempts = retry.DEFAULT_POLICY.max_attempts
+    for make in (lambda st: dispatch.Dispatcher(3, ["cuda:0"], stats=st),
+                 lambda st: dispatch.ListDispatcher(
+                     3, ["cuda:0"], sink=listing.ArraySink(5), stats=st,
+                     capacity=capacity)):
+        stats = Stats()
+        disp = make(stats)
+        ops.reset_counts()
+        inject.configure("kernel.launch=1.0")
+        try:
+            with pytest.raises(inject.FaultInjected):
+                disp.submit(batch)
+        finally:
+            inject.configure(None)
+            if isinstance(disp, dispatch.ListDispatcher):
+                disp.close()
+        assert stats.retries == attempts - 1 and stats.demotions == 0
+        assert sum(ops.launch_counts().values()) == 0
+        assert sum(ops.plain_counts().values()) == 0
+
+
+def _card(A, cand, device):
+    return (torch.from_numpy(A).view(torch.int32).to(device),
+            torch.from_numpy(cand).view(torch.int32).to(device))
+
+
+def _planted_want(T, members, l, cap):
+    """The exact outputs on planted-clique tiles: per-tile counts C(s, l),
+    per-lowest-vertex counts, and the list triple at capacity ``cap``
+    (the l-subsets of each clique in lexicographic order)."""
+    from itertools import combinations, islice
+    from math import comb
+    B = len(members)
+    counts = torch.tensor([comb(len(m), l) for m in members])
+    per_v = torch.zeros((B, T), dtype=torch.int64)
+    buf = torch.zeros((B, cap, l), dtype=torch.int32)
+    for b, m in enumerate(members):
+        for i, v in enumerate(m):
+            per_v[b, v] = comb(len(m) - i - 1, l - 1)
+        rows = list(islice(combinations(m, l), cap))
+        if rows:
+            buf[b, :len(rows)] = torch.tensor(rows, dtype=torch.int32)
+    return counts, per_v, (buf, counts, (counts > cap).to(torch.int64))
+
+
+# The DFS kernels' todo stack is dynamic shared memory sized by l: the
+# count kernel's (l - 5) KB a 256-thread block, the list kernel's
+# (l - 4) KB plus (l - 2) x 256 / W prefix words.  48 KB is the most a
+# kernel gets without opting in: the count kernel holds l = 53 in it and
+# opts in from l = 54; the list kernel holds l = 27 at T = 32 and l = 35 at
+# T = 64, and opts in from 28 and 36.  Past the card's 227 KB a block (the
+# count kernel from l = 233, the list kernel from l = 206 at T = 256) the
+# block shrinks to 128 threads.
+_LARGE_L = [(32, 17), (64, 17), (64, 53), (64, 54), (256, 233)]
+_LARGE_L_LIST = [(32, 17), (64, 17), (32, 27), (32, 28), (64, 35), (64, 36),
+                 (256, 206)]
+
+
+@pytest.mark.parametrize("T,l", _LARGE_L)
+def test_count_kernels_at_large_l(cuda, T, l):
+    """Counts and per-branch counts at l > 16, on both sides of the 48 KB
+    opt-in and past 227 KB, against the planted cliques' closed forms;
+    at l = 17 and at the first opted-in l also against the plain version
+    (on the CPU: its DFS takes minutes at l in the hundreds)."""
+    A, cand, members = planted_clique_tiles(l, T, (l + 1, l, l - 1))
+    counts, per_v, _ = _planted_want(T, members, l, 1)
+    tA, tc = _card(A, cand, cuda)
+    before = ops.launch_counts()["clique_count_tiles"]
+    got = clique_count.clique_count_tiles(tA, tc, l)
+    assert ops.launch_counts()["clique_count_tiles"] == before + 1
+    assert torch.equal(got.cpu(), counts)
+    assert torch.equal(clique_count.clique_count_items(tA, tc, l).cpu(), per_v)
+    if l in (17, 54):
+        cA, cc = _card(A, cand, "cpu")
+        assert torch.equal(got.cpu(),
+                           clique_count.clique_count_tiles_torch(cA, cc, l))
+
+
+@pytest.mark.parametrize("T,l", _LARGE_L_LIST)
+def test_list_kernel_at_large_l(cuda, T, l):
+    """List triples at l > 16, on both sides of the 48 KB opt-in and past
+    227 KB, against the planted cliques' rows; up to T = 64 also against
+    the plain version on the CPU.  Capacity l cuts the (l + 1)-clique's
+    tile short (overflow) and holds the l-clique's one row."""
+    A, cand, members = planted_clique_tiles(l + 1, T, (l + 1, l, l - 1))
+    _, _, want = _planted_want(T, members, l, l)
+    tA, tc = _card(A, cand, cuda)
+    before = ops.launch_counts()["clique_list_tiles"]
+    got = clique_list.clique_list_tiles(tA, tc, l, l)
+    assert ops.launch_counts()["clique_list_tiles"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y), (T, l)
+    if T <= 64:
+        cA, cc = _card(A, cand, "cpu")
+        for x, y in zip(got, clique_list.clique_list_tiles_torch(cA, cc, l,
+                                                                 l)):
+            assert torch.equal(x.cpu(), y), (T, l)
+
+
+@pytest.mark.parametrize("T", [32, 64])
+def test_dfs_kernels_at_l17_and_18_match_plain(cuda, T):
+    """Noisy planted cliques (C(19, 17) = 171 17-cliques in the largest)
+    at l = 17 and 18: count, items and list kernels against their plain
+    versions on the card."""
+    A, cand = _card(*big_clique_tiles(T, 4, T, (19, 18, 17, 0),
+                                      noise=0.03), cuda)
+    for l in (17, 18):
+        want, _ = _assert_dfs_kernels_match(A, cand, l, caps=(1, 64, 256))
+        assert int(want.max()) > 0
+
+
+def _small_tiles(seed, B, T, s_max=10, p=0.5):
+    """B tiles of at most ``s_max`` cand vertices: a short DFS each."""
+    rng = np.random.default_rng(seed)
+    upper = np.triu(rng.random((B, T, T)) < p, 1)
+    dense = upper | upper.transpose(0, 2, 1)
+    cmask = np.arange(T)[None, :] < rng.integers(0, s_max + 1, B)[:, None]
+    return (torch.from_numpy(pack_bits(dense)).view(torch.int32),
+            torch.from_numpy(pack_bits(cmask)).view(torch.int32))
+
+
+@pytest.mark.parametrize("B", [65_536, 70_000])
+def test_batches_past_one_launch_match_cpu(cuda, B):
+    """A batch of 2^16 tiles or more goes to the card in two launches of
+    at most LAUNCH_TILES tiles; counts, per-branch counts and list triples
+    equal the CPU's plain versions byte for byte."""
+    A, cand = _small_tiles(B, B, 32)
+    tA, tc = A.to(cuda), cand.to(cuda)
+    assert clique_count.launch_chunks(B) == [
+        (0, clique_count.LAUNCH_TILES), (clique_count.LAUNCH_TILES, B)]
+    before = ops.launch_counts()
+    got = clique_count.clique_count_tiles(tA, tc, 4)
+    assert torch.equal(got.cpu(), clique_count.clique_count_tiles_torch(
+        A, cand, 4))
+    assert torch.equal(clique_count.clique_count_items(tA, tc, 4).cpu(),
+                       clique_count.clique_count_items_torch(A, cand, 4))
+    for x, y in zip(clique_list.clique_list_tiles(tA, tc, 4, 4),
+                    clique_list.clique_list_tiles_torch(A, cand, 4, 4)):
+        assert torch.equal(x.cpu(), y)
+    after = ops.launch_counts()
+    assert after["clique_count_tiles"] == before["clique_count_tiles"] + 2
+    assert after["clique_list_tiles"] == before["clique_list_tiles"] + 2
+
+
+def test_list_batch_past_the_per_x_budget(cuda):
+    """At T = 256 one list launch takes PER_X_BYTES // (8 T^2) = 2,048
+    tiles, so 2,053 tiles take two launches and equal the CPU's triple."""
+    B, T = 2053, 256
+    A, cand = _small_tiles(7, B, T, s_max=24, p=0.3)
+    before = ops.launch_counts()["clique_list_tiles"]
+    got = clique_list.clique_list_tiles(A.to(cuda), cand.to(cuda), 4, 16)
+    assert ops.launch_counts()["clique_list_tiles"] == before + 2
+    for x, y in zip(got, clique_list.clique_list_tiles_torch(A, cand, 4, 16)):
+        assert torch.equal(x.cpu(), y)

@@ -19,6 +19,7 @@ import torch
 from repro.core.bitops import pack_bits
 from repro.kernels import ops as jops
 from repro_torch.kernels import clique_count, clique_list, ops
+from torch_cases import big_clique_tiles
 
 BINS = (32, 64, 128, 256)
 
@@ -107,8 +108,14 @@ def test_item_wrapper_takes_plain_version_on_cpu():
                                                                   5))
     assert clique_count.item_launches == before
     assert sum(ops.launch_counts().values()) == 0
-    with pytest.raises(ValueError):
-        clique_count.clique_count_items(A, cand, clique_count.L_MAX + 1)
+    # no cap on l: at l = 17 and 18 the branch counts sum to the
+    # reference's tile counts
+    big = big_clique_tiles(18, 3, 64, (19, 18, 0), noise=0.03)
+    for l in (17, 18):
+        got = clique_count.clique_count_items(*port(*big), l)
+        np.testing.assert_array_equal(got.sum(-1).numpy(),
+                                      jax_count(*big, l))
+        assert int(got.sum()) > 0
     with pytest.raises(TypeError):
         clique_count.clique_count_items(A.to(torch.int64), cand, 4)
     # the kernels pack an item's tile index into 16 bits

@@ -17,7 +17,7 @@ from repro.core.bitops import pack_bits, pack_mask, pack_rows
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import clique_count, ops, ref, triangle_mm
-from torch_cases import structured_triangle_tiles
+from torch_cases import big_clique_tiles, structured_triangle_tiles
 
 BINS = (32, 64, 128, 256)
 
@@ -198,8 +198,12 @@ def test_count_tiles_rejects_bad_method_and_l():
         ops.count_tiles(A, cand, 3, method="pallas")
     with pytest.raises(ValueError):
         ops.count_tiles(A, cand, 0)
-    with pytest.raises(ValueError):
-        clique_count.clique_count_tiles(A, cand, clique_count.L_MAX + 1)
+    # no cap on l: l = 17 and 18 (k = 19, 20) count as the reference does
+    big = big_clique_tiles(17, 3, 32, (19, 18, 0), noise=0.03)
+    for l in (17, 18):
+        got = clique_count.clique_count_tiles(*port(*big), l).numpy()
+        np.testing.assert_array_equal(got, jax_count(*big, l, "auto"))
+        assert got.max() > 0
 
 
 @pytest.mark.parametrize("wrapper", ["triangle", "dfs"])

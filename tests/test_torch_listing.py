@@ -31,6 +31,7 @@ from repro_torch.core.engine_np import Stats
 from repro_torch.data import graphs as tgraphs
 from repro_torch.kernels import clique_list, intersect, ops
 from repro_torch.launch import clique
+from torch_cases import big_clique_tiles
 
 BINS = (32, 64, 128, 256)
 
@@ -126,8 +127,13 @@ def test_list_wrapper_checks_inputs_and_counts_plain_calls():
     A, cand = port(*cliquey_tiles(5, 3, 32))
     with pytest.raises(ValueError):
         clique_list.clique_list_tiles(A, cand, 0, 4)
-    with pytest.raises(ValueError):
-        clique_list.clique_list_tiles(A, cand, clique_list.L_MAX + 1, 4)
+    # no cap on l: at l = 17 and 18 the triple (overflowing at capacity 4)
+    # is the reference's, byte for byte
+    big = big_clique_tiles(19, 3, 32, (19, 18, 0), noise=0.03)
+    for l in (17, 18):
+        got = clique_list.clique_list_tiles(*port(*big), l, 4)
+        assert_triple_equal(got, jax_list(*big, l, 4))
+        assert int(got[1].max()) > 0
     with pytest.raises(ValueError):
         clique_list.clique_list_tiles(A, cand, 3, 0)
     with pytest.raises(TypeError):

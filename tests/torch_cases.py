@@ -24,3 +24,41 @@ def structured_triangle_tiles(case, T, seed=0):
     dense = upper | upper.T
     cmask = np.full(T, case != "empty_cand")
     return pack_bits(dense[None]), pack_bits(cmask[None])
+
+
+def big_clique_tiles(seed, B, T, sizes, noise=0.05, spare=3):
+    """(B, T, W) uint32 symmetric tiles and (B, W) cands, each tile a
+    planted clique of ``sizes[b % len(sizes)]`` vertices scattered over the
+    T slots, ``spare`` more cand vertices outside it and ``noise`` random
+    edges everywhere: the tiles that hold l-cliques for l well above 16
+    (C(s, l) of them in a clique of s vertices, plus what noise adds) with
+    a DFS that stays short.  Returns numpy words."""
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((B, T, T), dtype=bool)
+    cmask = np.zeros((B, T), dtype=bool)
+    for b in range(B):
+        s = min(T, sizes[b % len(sizes)])
+        members = rng.choice(T, size=min(T, s + spare), replace=False)
+        dense[b][np.ix_(members[:s], members[:s])] = True
+        dense[b] |= rng.random((T, T)) < noise
+        cmask[b, members] = True
+    dense = np.triu(dense, 1)
+    dense |= dense.transpose(0, 2, 1)
+    return pack_bits(dense), pack_bits(cmask)
+
+
+def planted_clique_tiles(seed, T, sizes):
+    """One tile per entry of ``sizes``: a clique of that many vertices on
+    scattered slots, two isolated cand vertices beside it, and no other
+    edge, so the l-cliques of tile b are exactly the l-subsets of its
+    clique, C(s, l) of them, listed in lexicographic order.  Returns
+    ((B, T, W) words, (B, W) words, the sorted clique slots of each tile;
+    a tile whose clique has under two vertices has none).
+    """
+    A, cand = big_clique_tiles(seed, len(sizes), T, sizes, noise=0.0,
+                               spare=2)
+    bits = np.unpackbits(A.view(np.uint8), bitorder="little")
+    degree = bits.reshape(len(sizes), T, T).sum(-1)
+    members = [np.nonzero(d)[0].tolist() for d in degree]
+    assert [len(m) for m in members] == [s if s > 1 else 0 for s in sizes]
+    return A, cand, members
