@@ -45,7 +45,23 @@ the dispatcher, its default) and listing, and finally:
   exact; under ``kernel.launch=1.0`` a small graph's count and listing
   retry their first batch on the kernel and then raise, with no
   plain-version call and no host finish; a real error raised by a launch
-  propagates undemoted.
+  propagates undemoted;
+* tile widths (``[widths]``): the ``-Xptxas -v`` report of the
+  instantiations at W = 3, 5, 6, 7 (no spill in a full block), the four
+  kernels at T = 96, 160, 192 and 224 on seeded tiles and on the
+  main-path batches of a ``mult32`` stream, each against its plain
+  version and timed beside the same tiles packed at the next power of
+  two, and the k = 7 count on the scale-15 graph under the ``mult32``
+  ladder;
+* plan persistence (``[persist]``): ``save_plan`` of the scale-15 plan,
+  a fresh launcher process that loads it with ``--plan-cache`` and counts
+  k = 5, and a corrupt scale-12 store (``plan.load=1.0:corrupt``)
+  quarantined and rebuilt;
+* the tuner (``[tune]``): ``tune_geometry`` for counting (l = 5) and
+  listing (l = 3) persisted to a tune cache, a fresh launcher process
+  that counts k = 7 with ``--tune-cache`` on the tuned geometry without a
+  search, and the ``autotune`` backend's kernel-vs-plain measurement,
+  whose winner the card reports and does not obey.
 
 Any failure raises and exits non-zero.
 
@@ -247,14 +263,15 @@ def seeded_tiles(seed: int, B: int, T: int, p: float):
 
 
 def main_path_batches(plan, k: int, T: int, batch_size: int = 256,
-                      zero_2plex: bool = True):
+                      zero_2plex: bool = True, bins=BINS):
     """The inputs the main path gives the kernels in bin ``T`` at ``k``:
     ``batch_size`` tiles spread evenly over the bin's stream order (its
     first tiles come from the densest, last-peeled edges and are nearly all
     2-plexes), and the bin's real last batch of ``n_tiles % batch_size``
     tiles.  Each is packed as the engine packs it; with ``zero_2plex`` the
     2-plex lanes are zeroed as ``count_packed`` zeroes them (the listing
-    engine zeroes none).  Yields (tag, A, cand, live)."""
+    engine zeroes none).  ``bins`` is the ladder the stream routes by.
+    Yields (tag, A, cand, live)."""
     import numpy as np
     import torch
     from repro_torch.convert import batch_to_torch
@@ -262,7 +279,7 @@ def main_path_batches(plan, k: int, T: int, batch_size: int = 256,
     table = plan.table("hybrid")
     ids = table.select(k)
     sizes = table.offsets[ids + 1] - table.offsets[ids]
-    lo = dict(zip(BINS, (0,) + BINS[:-1]))[T]
+    lo = dict(zip(bins, (0,) + tuple(bins[:-1])))[T]
     sel = ids[(sizes > lo) & (sizes <= T)]
     picks = [("sample", sel[np.unique(np.linspace(
         0, sel.size - 1, min(batch_size, sel.size)).astype(np.int64))])]
@@ -1200,6 +1217,340 @@ def resilience_phase(lg, lplan, queries, cli_outputs) -> dict:
     return out
 
 
+#: the tile widths that are multiples of 32 but not powers of two
+NEW_T = (96, 160, 192, 224)
+#: the reference tuner's mult32 ladder (repro_torch.tune.search.bins_for)
+MULT32 = (32, 64, 96, 128, 160, 192, 224, 256)
+
+
+def pow2_twin(A, cand):
+    """The same tiles packed at the next power-of-two width: each row's
+    and the cand's words copied, the added vertices isolated and outside
+    cand, so every kernel's result is unchanged."""
+    import torch
+    B, T, W = A.shape
+    T2 = 1 << (T - 1).bit_length()
+    A2 = torch.zeros((B, T2, T2 // 32), dtype=A.dtype, device=A.device)
+    A2[:, :T, :W] = A
+    c2 = torch.zeros((B, T2 // 32), dtype=cand.dtype, device=cand.device)
+    c2[:, :W] = cand
+    return A2, c2
+
+
+def widths_ptxas(ptxas) -> dict:
+    """The ``-Xptxas -v`` report of the instantiations at W = 3, 5, 6, 7;
+    fails on a spill in any that runs in a full block (every kernel but the
+    item and emit kernels' halved-block variants, template flag 0)."""
+    out = {}
+    for name, info in sorted(ptxas.items()):
+        m = re.fullmatch(r"(\w+)<(\d+)((?:,\d+)*)>", name)
+        if not m or int(m.group(2)) * 32 not in NEW_T:
+            continue
+        args = [int(a) for a in m.group(3).split(",")[1:]]
+        full = not (m.group(1) in ("item_kernel", "list_emit_kernel")
+                    and args[-1] == 0)
+        out[name] = dict(info, full_block=full)
+        log(f"[widths] ptxas {name}: {info['registers']} registers, "
+            f"{info['spill_stores']} B spill stores, {info['spill_loads']} B "
+            f"spill loads{'' if full else ' (halved blocks only)'}")
+        if full and (info["spill_stores"] or info["spill_loads"]):
+            fail(f"{name} spills in a full block: {info}")
+    if len(out) < 4 * 5:
+        fail(f"ptxas reported {len(out)} instantiations at the new widths")
+    return out
+
+
+def widths_case(rows, errs, A, cand, tag, ls=(3, 5), list_l=None,
+                pairs=None):
+    """Every kernel on one batch at a new width and on its pow2 twin: each
+    held against its plain version (in kernel_cases / list_case /
+    edge_case), the twin's results equal to the batch's, and both timed.
+    Returns {(kernel, l): (device_ms, twin device_ms)}."""
+    import torch
+    from repro_torch.kernels import ops
+    A2, c2 = pow2_twin(A, cand)
+    out = {}
+    for l in ls:
+        got = kernel_cases(rows, errs, A, cand, l, tag, reps=10)
+        twin = kernel_cases(rows, errs, A2, c2, l, tag + " twin", reps=10)
+        if not torch.equal(ops.count_tiles(A, cand, l),
+                           ops.count_tiles(A2, c2, l)):
+            fail(f"the pow2 twin counts differently at l={l} ({tag})")
+        for r, r2 in zip(got, twin):
+            out[(r["kernel"], l)] = (r["device_ms"], r2["device_ms"])
+    if list_l is not None:
+        from repro_torch.core import listing
+        counts = ops.count_tiles(A, cand, list_l).cpu().numpy()
+        cap = listing.capacity_for(counts)
+        r = list_case(rows, errs, A, cand, list_l, cap, tag, reps=10)
+        r2 = list_case(rows, errs, A2, c2, list_l, cap, tag + " twin",
+                       reps=10)
+        got = ops.list_tiles(A, cand, list_l, cap)
+        for x, y in zip(got, ops.list_tiles(A2, c2, list_l, cap)):
+            if not torch.equal(x, y):
+                fail(f"the pow2 twin lists differently ({tag})")
+        out[("list", list_l)] = (r["device_ms"], r2["device_ms"])
+    if pairs is not None:
+        r = edge_case(rows, errs, A, pairs, tag, reps=10)
+        r2 = edge_case(rows, errs, A2, pairs, tag + " twin", reps=10)
+        n1 = ops.edge_candidates(A, pairs)[1]
+        if not torch.equal(n1, ops.edge_candidates(A2, pairs)[1]):
+            fail(f"the pow2 twin's edge candidates differ ({tag})")
+        out[("edge", 0)] = (r["device_ms"], r2["device_ms"])
+    for (kernel, l), (ms, ms2) in out.items():
+        log(f"[widths] {tag}: {kernel} l={l} T={A.shape[1]} "
+            f"{ms:.5f} ms, same tiles at T={A2.shape[1]} {ms2:.5f} ms "
+            f"({ms / ms2:.2f}x)")
+    return out
+
+
+def widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
+                 queries) -> dict:
+    """``[widths]``: the four kernels at T = 96, 160, 192 and 224 -- their
+    ptxas report, seeded tiles, and the main-path batches of a ``mult32``
+    stream (counting on rmat15, listing on rmat12) -- each against its
+    plain version and timed beside the same tiles at the next power of
+    two; then the k = 7 count on rmat15 under the mult32 ladder, exact,
+    with its wall beside the pow2 wall of ``[main]``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ebbkc
+    from repro_torch.kernels import ops
+    from repro_torch.tune import search
+    if tuple(search.bins_for("mult32")) != MULT32:
+        fail("the mult32 ladder changed")
+    out = {"ptxas": widths_ptxas(ptxas), "times": {}}
+    density = {96: 0.12, 160: 0.08, 192: 0.07, 224: 0.06}
+    for T in NEW_T:
+        A, cand = (torch.from_numpy(x).view(torch.int32).cuda()
+                   for x in seeded_tiles(T + 7, 64, T, density[T]))
+        rng = np.random.default_rng(T)
+        a = rng.integers(0, T - 1, 64)
+        pairs = torch.from_numpy(np.stack(
+            [a, a + 1 + rng.integers(0, T - 1 - a)], 1).astype(np.int32)
+        ).cuda()
+        out["times"][f"seeded T={T}"] = widths_case(
+            rows, errs, A, cand, f"seeded T={T}", ls=(3, 5), list_l=4,
+            pairs=pairs)
+    for k, l in ((5, 3), (7, 5)):
+        for T in NEW_T:
+            for which, A, cand, live in main_path_batches(plan, k, T,
+                                                          bins=MULT32):
+                if which != "sample":
+                    continue
+                tag = f"mult32 k={k} T={T}"
+                out["times"][tag] = widths_case(
+                    rows, errs, A, cand, tag, ls=(l,),
+                    pairs=first_edges(A) if k == 5 else None)
+    for T in NEW_T:
+        for which, A, cand, _ in main_path_batches(lplan, 6, T, bins=MULT32,
+                                                   zero_2plex=False):
+            if which == "sample":
+                tag = f"mult32 list k=6 T={T}"
+                out["times"][tag] = widths_case(rows, errs, A, cand, tag,
+                                                ls=(), list_l=4)
+    # pow2, mult32, pow2 in turns on the warm plan: the host's spread
+    # between queries of one call is what the two ladders are held within
+    walls = {"pow2": [], "mult32": []}
+    for ladder in ("pow2", "mult32", "pow2"):
+        bins = MULT32 if ladder == "mult32" else BINS
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        res = ebbkc.count(g, 7, engine_kwargs={"bins": bins})
+        wall = time.perf_counter() - t0
+        st = res.stats
+        queries.append((f"[widths] count k=7 {ladder}", st))
+        launches, plain = ops.launch_counts(), ops.plain_counts()
+        walls[ladder].append(wall)
+        log(f"[widths] k=7 rmat15 under {ladder}: count={res.count} wall="
+            f"{wall:.2f} s frontend={st.frontend_s:.2f} worker-s "
+            f"({st.pack_workers} workers, queue_occ="
+            f"{st.pack_queue_occupancy:.2f}) tiles={res.tiles} launches "
+            f"{launches}")
+        if res.count != EXPECTED[7]:
+            fail(f"k=7 under {ladder} counted {res.count}, expected "
+                 f"{EXPECTED[7]}")
+        if not launches["clique_count_tiles"] or sum(plain.values()):
+            fail(f"k=7 under {ladder}: launches {launches}, plain calls "
+                 f"{plain}")
+    out["k7"] = dict(count=res.count, walls_s=walls,
+                     main_pow2_wall_s=main_runs[7]["wall_s"])
+    log(f"[widths] k=7 rmat15 walls: mult32 {walls['mult32'][0]:.2f} s, "
+        f"pow2 before and after {walls['pow2'][0]:.2f} / "
+        f"{walls['pow2'][1]:.2f} s ([main], with stage timing: "
+        f"{main_runs[7]['wall_s']:.2f} s)")
+    return out
+
+
+def run_cli(argv, env_extra=None, timeout=900):
+    """``python -m repro_torch.launch.clique ARGV`` in a fresh process
+    (``src/`` on its path, no tune cache or fault plan from this
+    environment unless ``env_extra`` sets one); returns its stdout."""
+    import os
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("REPRO_TORCH_TUNE_CACHE", "REPRO_TORCH_FAULT_PLAN")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env.update(env_extra or {})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.clique", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    log("[cli] " + " ".join(argv) + f" ({wall:.1f} s): "
+        + " | ".join(proc.stdout.strip().splitlines()))
+    if proc.returncode:
+        fail(f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def cli_count(out: str, k: int) -> int:
+    m = re.search(rf"k={k}: (\d+) cliques", out)
+    if m is None:
+        fail(f"no k={k} count in the launcher's output")
+    return int(m.group(1))
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def persist_phase(g, plan, lg, lplan, main_runs) -> dict:
+    """``[persist]``: ``save_plan`` of the warm rmat15 plan (seconds,
+    bytes); a fresh process counting k = 5 on rmat15 with ``--plan-cache``
+    loads it from disk (exact, ``warm``); and on rmat12 a store read under
+    ``plan.load=1.0:corrupt`` (through REPRO_TORCH_FAULT_PLAN) is
+    quarantined and rebuilt, and the count stays exact."""
+    import shutil
+    from repro_torch.core import pipeline
+    out = {}
+    base = ROOT / "build" / "smoke_plans"
+    shutil.rmtree(base, ignore_errors=True)
+    key = pipeline.plan_key(g, "hybrid")
+    t0 = time.perf_counter()
+    pipeline.save_plan(plan, str(base / key))
+    out["save_s"] = time.perf_counter() - t0
+    out["bytes"] = dir_bytes(base / key)
+    log(f"[persist] save_plan rmat15: {out['save_s']:.2f} s, "
+        f"{out['bytes']} B on disk")
+    text, wall = run_cli(["--graph", f"rmat:{RMAT_SCALE},{RMAT_EDGE_FACTOR}",
+                          "--k", "5", "--plan-cache", str(base)])
+    m = re.search(r"plan cache \[.*\]: warm \(decomposition skipped\), "
+                  r"([0-9.]+)s", text)
+    if m is None:
+        fail("the second process did not load the rmat15 plan from disk")
+    out["load_s"] = float(m.group(1))
+    out["process_wall_s"] = wall
+    out["build_s_this_run"] = main_runs[5]["plan_build_s"]
+    count = cli_count(text, 5)
+    log(f"[persist] fresh process, --plan-cache: count={count}, plan loaded "
+        f"in {out['load_s']:.2f} s against a {out['build_s_this_run']:.2f} s "
+        f"build in [main] (this run); process wall {wall:.1f} s")
+    if count != EXPECTED[5]:
+        fail(f"--plan-cache k=5 counted {count}, expected {EXPECTED[5]}")
+    lkey = pipeline.plan_key(lg, "hybrid")
+    pipeline.save_plan(lplan, str(base / lkey))
+    text, _ = run_cli(["--graph", f"rmat:{LIST_SCALE},{RMAT_EDGE_FACTOR}",
+                       "--k", "5", "--plan-cache", str(base)],
+                      env_extra={"REPRO_TORCH_FAULT_PLAN":
+                                 "plan.load=1.0:corrupt"})
+    quarantined = list((base / lkey / "quarantine").iterdir()) \
+        if (base / lkey / "quarantine").is_dir() else []
+    count = cli_count(text, 5)
+    out["corrupt"] = dict(count=count, quarantined=len(quarantined),
+                          rebuilt="cold (built in" in text)
+    log(f"[persist] rmat12 under plan.load=1.0:corrupt: count={count}, "
+        f"{len(quarantined)} store(s) quarantined, rebuilt="
+        f"{out['corrupt']['rebuilt']}")
+    if (count != EXPECTED_LIST[5][0] or len(quarantined) != 1
+            or not out["corrupt"]["rebuilt"]):
+        fail(f"the corrupt plan store was not quarantined and rebuilt "
+             f"exactly: {out['corrupt']}")
+    return out
+
+
+def tune_phase(g, main_runs) -> dict:
+    """``[tune]``: the geometry search at the reference's budget (20 s)
+    for counting at l = 5 and listing at l = 3, persisted to a tune cache
+    (whose ``kernels/`` the library is built into); a fresh process with
+    ``--tune-cache`` then resolves the count geometry from the record
+    (``tune_hit=True``, no search) and counts k = 7 on rmat15 exactly;
+    finally the kernel-vs-plain microbenchmark of ``autotune`` at
+    (count, l = 5, T = 32), whose winner a CUDA lane reports and does not
+    obey: the kernel runs, no plain version."""
+    import shutil
+    import torch
+    from repro_torch import tune
+    from repro_torch.kernels import _build, ops
+    from repro_torch.tune import search
+    out = {}
+    base = ROOT / "build" / "smoke_tune"
+    shutil.rmtree(base, ignore_errors=True)
+    tune.configure(str(base))
+    try:
+        t0 = time.perf_counter()
+        _build.build()
+        out["cache_build_s"] = time.perf_counter() - t0
+        log(f"[tune] kernel library built into the tune cache "
+            f"{base / 'kernels'}: {out['cache_build_s']:.2f} s")
+        for mode, l in (("count", 5), ("list", 3)):
+            t0 = time.perf_counter()
+            rec = search.tune_geometry(mode, l, budget_s=20.0)
+            geom = search.geometry_from_record(rec)
+            out[f"{mode} l={l}"] = dict(
+                wall_s=time.perf_counter() - t0, bins=list(geom.bins),
+                **{k: v for k, v in rec.data.items()})
+            log(f"[tune] tune_geometry({mode!r}, {l}): "
+                f"{time.perf_counter() - t0:.1f} s, {rec.data['evals']} "
+                f"evaluations, bins={geom.bins} batch_size={geom.batch_size} "
+                f"cap_policy={geom.cap_policy} pack_workers="
+                f"{geom.pack_workers}, {rec.data['throughput']:.0f} items/s "
+                f"against {rec.data['baseline_throughput']:.0f} at the "
+                f"defaults")
+        want_bins = ",".join(map(str, search.geometry_from_record(
+            tune.get(tune.geometry_key("count", 5))).bins))
+        plans = ROOT / "build" / "smoke_plans"
+        text, wall = run_cli(
+            ["--graph", f"rmat:{RMAT_SCALE},{RMAT_EDGE_FACTOR}", "--k", "7",
+             "--tune-cache", str(base), "--plan-cache", str(plans)])
+        count = cli_count(text, 7)
+        ran = re.search(r"geometry: bins=([0-9,]+)", text)
+        out["cli"] = dict(count=count, wall_s=wall,
+                          bins=ran.group(1) if ran else None,
+                          tune_hit="tune_hit=True" in text)
+        log(f"[tune] fresh process, --tune-cache: count={count}, bins "
+            f"{out['cli']['bins']} (record: {want_bins}), tune_hit="
+            f"{out['cli']['tune_hit']}, {wall:.1f} s")
+        if (count != EXPECTED[7] or not out["cli"]["tune_hit"]
+                or out["cli"]["bins"] != want_bins):
+            fail(f"--tune-cache k=7 did not run the tuned geometry exactly: "
+                 f"{out['cli']}")
+        ops.clear_autotune_cache()
+        winner = ops.autotune_backend("count", 5, 32)
+        rec = tune.get(tune.backend_key("count", 5, 32))
+        out["microbench"] = dict(winner=winner, times=rec.data["times"])
+        log(f"[tune] microbench_backend('count', 5, 32): "
+            + ", ".join(f"{b} {t * 1e3:.3f} ms" for b, t in
+                        rec.data["times"].items()) + f"; winner {winner}")
+        A, cand = (torch.from_numpy(x).view(torch.int32).cuda()
+                   for x in seeded_tiles(41, 64, 32, 0.3))
+        ops.reset_counts()
+        got = ops.count_tiles(A, cand, 5, backend="autotune")
+        launches, plain = ops.launch_counts(), ops.plain_counts()
+        log(f"[tune] count_tiles(backend='autotune') on the card: winner "
+            f"{winner} reported, launches {launches}, plain calls {plain}")
+        if launches["clique_count_tiles"] != 1 or sum(plain.values()):
+            fail("the autotune backend did not run the kernel on the card")
+        from repro_torch.kernels import clique_count
+        if not torch.equal(got, clique_count.clique_count_tiles_torch(
+                A, cand, 5)):
+            fail("the autotune backend's count differs from the plain one")
+    finally:
+        tune.configure(None)
+        ops.clear_autotune_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", metavar="PATH", default=None,
@@ -1227,6 +1578,10 @@ def main(argv=None) -> int:
         f"count {torch.cuda.device_count()}")
 
     # -- phase 2: build ----------------------------------------------------
+    # a library left by an earlier run of these sources is rebuilt, so the
+    # build is timed and ptxas reports every instantiation
+    (_build.BUILD_DIR / f"libkernels-{_build._digest()}.so").unlink(
+        missing_ok=True)
     t0 = time.perf_counter()
     nvcc_log = io.StringIO()
     with contextlib.redirect_stdout(nvcc_log):
@@ -1238,17 +1593,8 @@ def main(argv=None) -> int:
         log(f"[ptxas] {name}: {info['registers']} registers, "
             f"{info['stack']} B stack frame, {info['spill_stores']} B spill "
             f"stores, {info['spill_loads']} B spill loads")
-    # for comparison only: the same sources in one nvcc call, run after
-    # the parallel build (so with the compiler's files already cached)
-    one = _build.BUILD_DIR / "one-call.tmp.so"
-    t0 = time.perf_counter()
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    str(one), *map(str, _build._sources())], check=True)
-    one_call_s = time.perf_counter() - t0
-    one.unlink()
-    log(f"[build] nvcc sm_90a, one process per source: {build_s:.2f} s; "
-        f"one nvcc over all {len(_build._sources())} sources (timed for "
-        f"comparison, not used): {one_call_s:.2f} s")
+    log(f"[build] nvcc sm_90a, one process per source, all started "
+        f"together: {build_s:.2f} s for {len(_build._sources())} sources")
 
     # -- phase 3: kernel vs plain on seeded tiles --------------------------
     rows, errs = [], {}
@@ -1578,6 +1924,12 @@ def main(argv=None) -> int:
                          queries)
     resilience_runs = resilience_phase(lg, lplan, queries, cli_outputs)
 
+    # -- the new tile widths, plan persistence, the tuner --------------------
+    widths_runs = widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
+                               queries)
+    persist_runs = persist_phase(g, plan, lg, lplan, main_runs)
+    tune_runs = tune_phase(g, main_runs)
+
     # -- summary -----------------------------------------------------------
     # each kernel's row: the bin with most launches on its path; launches
     # are those of its own path's run (counting, listing, edge candidates)
@@ -1618,10 +1970,14 @@ def main(argv=None) -> int:
         path.write_text(json.dumps(
             {"gpu": header, "torch": torch.__version__,
              "cuda": torch.version.cuda, "build_s": build_s,
-             "one_call_build_s": one_call_s, "cases": rows,
+             "cases": rows,
              "main": {str(k): v for k, v in main_runs.items()},
              "list_main": list_runs, "dispatch": dispatch_runs,
              "obs": obs_runs, "resilience": resilience_runs,
+             "widths": {**widths_runs, "times": {
+                 tag: {f"{kernel} l={l}": v for (kernel, l), v in t.items()}
+                 for tag, t in widths_runs["times"].items()}},
+             "persist": persist_runs, "tune": tune_runs,
              "launches": count_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,

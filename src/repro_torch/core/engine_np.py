@@ -17,7 +17,7 @@ bin here, and the launcher's ``--verify`` checks against it.
 
 All support early termination into :mod:`repro_torch.core.plex`.  Still
 to be ported: ``count_rec_V`` (VBBkC baseline), and the ``Stats`` fields
-of the delta and tune layers.
+of the delta layer.
 """
 from __future__ import annotations
 
@@ -82,6 +82,11 @@ class Stats:
     # cold-path build time (0.0 on warm queries)
     plan_cache_hit: bool = False
     plan_build_s: float = 0.0
+    # persistent autotuner (repro_torch.tune): wall seconds spent in live
+    # tuning measurements, and True when every tuning lookup of the query
+    # was answered from a cache layer (record or in-process)
+    tune_s: float = 0.0
+    tune_cache_hit: bool = False
 
     # How each field combines across Stats objects (Stats.merge) and how it
     # publishes to the metrics registry (obs.metrics.observe_stats), as in
@@ -121,6 +126,8 @@ class Stats:
         "sink_bytes": "sum",
         "plan_cache_hit": "or",
         "plan_build_s": "sum",
+        "tune_s": "sum",
+        "tune_cache_hit": "or",
     }
     # Metric-publication view of the same table
     # (repro_torch.obs.metrics.observe_stats reads this), as the
@@ -130,6 +137,7 @@ class Stats:
         pack_workers="max",
         pack_queue_occupancy="max",
         plan_cache_hit="flag",
+        tune_cache_hit="flag",
     )
 
     def merge(self, other: "Stats") -> "Stats":

@@ -19,10 +19,10 @@ Unlike the reference, batches are not padded to a power of two
 and an eager CUDA launch gains nothing from it.  The entry point runs on
 the CUDA device unless the caller passes ``device="cpu"``; there is no
 silent fallback.  ``devices=`` routes the batches through the multi-lane
-dispatcher (:mod:`repro_torch.runtime.dispatch`).  Still to be ported: the
-tuned geometry of ``repro.tune`` (this engine takes the historical
-defaults: ``batch_size=256``, bins ``(32, 64, 128, 256)``,
-``pack_workers`` from ``default_pack_workers()``).
+dispatcher (:mod:`repro_torch.runtime.dispatch`).  Geometry knobs left
+``None`` resolve through the persistent autotuner
+(:func:`repro_torch.tune.search.resolve_geometry`), and the plan comes off
+the keyed plan cache, optionally backed by an on-disk store.
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ from ..convert import batch_to_torch
 from ..kernels import ops as kops
 from ..kernels.common import pascal_table
 from ..kernels.ref import edges_within_ref
+from ..tune import search as tune_search
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,7 +94,8 @@ def count_2plex_closed_np(nv: np.ndarray, f: np.ndarray, l: int) -> np.ndarray:
 
 def count_packed(A: torch.Tensor, cand: torch.Tensor, l: int,
                  method: str = "auto", et: bool = True,
-                 stage_times: Optional[Dict[str, float]] = None):
+                 stage_times: Optional[Dict[str, float]] = None,
+                 backend: Optional[str] = None):
     """Device step over one packed batch of int32 word views.
 
     Returns (hard (B,) int64 kernel counts holding uint32 values, with the
@@ -101,7 +103,9 @@ def count_packed(A: torch.Tensor, cand: torch.Tensor, l: int,
     them with the exact int64 closed form.  With ``stage_times`` given and
     ``A`` on a CUDA device, CUDA events bracket the ``count_tiles`` call
     and its span (host enqueue included, so not the kernel's device time)
-    accumulates in seconds under ``"count_tiles_T<T>"``.
+    accumulates in seconds under ``"count_tiles_T<T>"``.  ``backend``
+    selects the kernel implementation (:mod:`repro_torch.kernels.ops`
+    registry).
     """
     B = A.shape[0]
     z = torch.zeros(B, dtype=torch.int32, device=A.device)
@@ -115,10 +119,11 @@ def count_packed(A: torch.Tensor, cand: torch.Tensor, l: int,
     if et:
         cand = torch.where((t <= 2)[:, None], torch.zeros_like(cand), cand)
     if stage_times is None or not A.is_cuda:
-        return kops.count_tiles(A, cand, l, method=method), nv, t, f
+        return (kops.count_tiles(A, cand, l, method=method, backend=backend),
+                nv, t, f)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    hard = kops.count_tiles(A, cand, l, method=method)
+    hard = kops.count_tiles(A, cand, l, method=method, backend=backend)
     end.record()
     end.synchronize()
     key = f"count_tiles_T{A.shape[1]}"
@@ -169,15 +174,29 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
           device=None,
           devices=None,
           async_staging: bool = True,
-          max_inflight: int = 2):
+          max_inflight: int = 2,
+          backend: Optional[str] = None,
+          prefetch: Optional[int] = None,
+          plan_cache: bool = True,
+          plan_cache_dir: Optional[str] = None):
     """Full-graph k-clique count on ``device`` (default: the CUDA device).
 
     Streams capacity-batched packed tiles from
     :mod:`repro_torch.core.pipeline`; pass a prebuilt ``plan`` to amortize
     preprocessing across queries, or leave ``plan=None`` to use the keyed
-    in-process plan cache.  Oversize tiles are counted on the host
-    (``stats.spilled_tiles``).  ``pack_workers=None`` sizes the pack pool
-    with ``pipeline.default_pack_workers()``.
+    plan cache (``pipeline.cached_plan``; ``plan_cache=False`` opts out,
+    ``plan_cache_dir`` adds the on-disk store shared across processes).
+    Oversize tiles are counted on the host (``stats.spilled_tiles``).
+
+    Geometry knobs left ``None`` (``batch_size``, ``bins``,
+    ``pack_workers``, ``prefetch``) resolve through the persistent
+    autotuner (:func:`repro_torch.tune.search.resolve_geometry`): explicit
+    argument > persisted geometry record > the historical defaults (256,
+    bins ``(32, 64, 128, 256)``, ``default_pack_workers()``, twice the
+    workers).  The count is identical under every geometry.  ``backend``
+    selects the kernel implementation (:mod:`repro_torch.kernels.ops`
+    registry); its one-time kernel seconds and tuning events land in
+    ``stats.kernel_compile_s``, ``tune_s`` and ``tune_cache_hit``.
     ``stage_times`` (optional dict) accumulates extract/pack/device/combine
     wall-clock seconds, and on a CUDA device the ``count_tiles`` device
     seconds per bin (see :func:`count_packed`); with it given, each batch
@@ -212,13 +231,17 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
         disp = Dispatcher(l, devices, et=et, method=method,
                           async_staging=async_staging,
                           max_inflight=max_inflight, stats=stats,
-                          stage_times=stage_times)
-    if plan is None:
-        plan = pipeline.cached_plan(g, order=order, stats=stats)
+                          stage_times=stage_times, backend=backend)
+    if plan is None and plan_cache:
+        plan = pipeline.cached_plan(g, order=order, cache_dir=plan_cache_dir,
+                                    stats=stats)
+    geom = tune_search.resolve_geometry(
+        "count", l, batch_size=batch_size, bins=bins,
+        pack_workers=pack_workers, prefetch=prefetch)
     stream = pipeline.stream_batches(
-        plan, k, order=order, use_rule2=use_rule2,
-        batch_size=batch_size, bins=bins, timings=stage_times,
-        pack_workers=pack_workers, stats=stats)
+        plan or g, k, order=order, use_rule2=use_rule2,
+        batch_size=geom.batch_size, bins=geom.bins, timings=stage_times,
+        pack_workers=geom.pack_workers, prefetch=geom.prefetch, stats=stats)
     if devices is not None:
         spill_total = 0
 
@@ -232,6 +255,8 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
             total = spill_total + disp.finish()
         finally:
             stream.close()  # stops the pack workers on error too
+        stats.kernel_compile_s += kops.consume_compile_s()
+        kops.drain_tune_events(stats)
         return Result(total, stats, ntiles, max_tile)
     try:
         for item in stream:
@@ -246,7 +271,7 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
             t0 = time.perf_counter()
             A, cand = batch_to_torch(item.A, item.cand, dev)
             out = count_packed(A, cand, l, method=method, et=et,
-                               stage_times=stage_times)
+                               stage_times=stage_times, backend=backend)
             if stage_times is not None and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
@@ -258,4 +283,6 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
                     + time.perf_counter() - t1
     finally:
         stream.close()  # stops the pack workers on error too
+    stats.kernel_compile_s += kops.consume_compile_s()
+    kops.drain_tune_events(stats)
     return Result(total, stats, ntiles, max_tile)

@@ -13,7 +13,8 @@ Exactness invariants (as in the reference):
 * **exact-once** -- each k-clique is produced by exactly one anchor edge
   (the paper's Eq. 2 attribution), so no de-duplication is ever needed;
 * **never truncated** -- emit buffers are sized by a first count pass
-  (rounded up to a power of two, capped at ``max_capacity``); a tile whose
+  (rounded up under ``cap_policy``, a power of two by default, capped at
+  ``max_capacity``); a tile whose
   true count exceeds its buffer raises the kernel's overflow flag and is
   relisted by the host bitset recursion (``Stats.overflowed_tiles``), as
   oversize tiles spill (``Stats.spilled_tiles``);
@@ -28,8 +29,10 @@ Exactness invariants (as in the reference):
 where it has them (``spill/list``, ``overflow/relist``, ``device/sizing``,
 ``device/wait``, ``decode``), and the ``device.harvest``, ``decode`` and
 ``sink.write`` fault sites absorb an injected fault in place before the
-stage's work.  Still to be ported: the autotuned geometry (this engine
-takes the historical defaults) and the tune hooks.
+stage's work.  Geometry knobs left ``None`` resolve through the
+persistent autotuner (:func:`repro_torch.tune.search.resolve_geometry`),
+and a Graph source takes its plan off the keyed plan cache, optionally
+backed by an on-disk store.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from ..convert import batch_to_torch
 from ..kernels import ops as kops
 from ..obs import trace
 from ..resilience import retry as fault_retry
+from ..tune import search as tune_search
 
 #: default cap on the per-tile emit buffer (rows); tiles whose true count
 #: exceeds it overflow to the host relist instead of growing the buffer
@@ -265,14 +269,29 @@ def decode_batch(
 # ---------------------------------------------------------------------------
 
 
-def capacity_for(counts: np.ndarray, max_capacity: int = MAX_CAPACITY) -> int:
-    """Emit-buffer rows for a batch: its largest count rounded up to a power
-    of two, at most ``max_capacity`` (the rare monster tile overflows to the
-    host relist instead)."""
+def capacity_for(counts: np.ndarray, max_capacity: int = MAX_CAPACITY,
+                 policy: str = "pow2") -> int:
+    """Emit-buffer rows for a batch, its largest count rounded up under
+    ``policy``.
+
+    ``"pow2"`` (default) rounds to the next power of two; ``"mult64"`` to
+    the next multiple of 64, up to 2x less buffer (and zero fill) for more
+    distinct capacities.  Which wins is hardware-dependent, so the geometry
+    tuner (:mod:`repro_torch.tune.search`) owns the choice.
+    ``max_capacity`` bounds the buffer either way, overflowing the rare
+    monster tile to the host relist instead.
+    """
     m = int(np.asarray(counts).max(initial=1))
-    cap = 1
-    while cap < m:
-        cap *= 2
+    if policy == "mult64":
+        cap = -(-m // 64) * 64
+    elif policy == "pow2":
+        cap = 1
+        while cap < m:
+            cap *= 2
+    else:
+        raise ValueError(
+            f"unknown capacity policy {policy!r}; expected 'pow2' or 'mult64'"
+        )
     return max(1, min(cap, int(max_capacity)))
 
 
@@ -323,10 +342,16 @@ def list_batch(
     device,
     capacity: Optional[int] = None,
     max_capacity: int = MAX_CAPACITY,
+    cap_policy: str = "pow2",
     et_t: int = 3,
     stage_times: Optional[Dict[str, float]] = None,
+    backend: Optional[str] = None,
 ) -> np.ndarray:
     """Single-device emit step: count pass -> sized list kernel -> decode.
+
+    The count pass sizes the buffer by :func:`capacity_for` under
+    ``cap_policy``; ``backend`` selects the kernel implementation
+    (:mod:`repro_torch.kernels.ops` registry).
 
     With ``stage_times`` given, the device step (H2D, count pass, list
     kernel, D2H; it synchronizes on the count pass and the copy back)
@@ -339,12 +364,13 @@ def list_batch(
     A, cand = batch_to_torch(batch.A, batch.cand, device)
     if capacity is None:
         with trace.span("device/sizing", B=B, T=batch.T):
-            counts = kops.count_tiles(A, cand, l).cpu().numpy()
-        cap = capacity_for(counts, max_capacity)
+            counts = kops.count_tiles(A, cand, l,
+                                      backend=backend).cpu().numpy()
+        cap = capacity_for(counts, max_capacity, policy=cap_policy)
     else:
         cap = max(1, int(capacity))
     with trace.span("device/wait", B=B, T=batch.T, capacity=cap):
-        bufs, cnt, ovf = kops.list_tiles(A, cand, l, cap)
+        bufs, cnt, ovf = kops.list_tiles(A, cand, l, cap, backend=backend)
         fault_retry.consume("device.harvest")
         bufs, cnt, ovf = (bufs.cpu().numpy(), cnt.cpu().numpy(),
                           ovf.cpu().numpy())
@@ -373,13 +399,18 @@ def stream_cliques(
     batch_size: Optional[int] = None,
     bins: Optional[Sequence[int]] = None,
     capacity=None,
-    max_capacity: int = MAX_CAPACITY,
+    max_capacity: Optional[int] = None,
+    cap_policy: Optional[str] = None,
     devices=None,
     async_staging: bool = True,
     max_inflight: int = 2,
     stage_times: Optional[dict] = None,
     pack_workers: Optional[int] = None,
+    prefetch: Optional[int] = None,
     device=None,
+    backend: Optional[str] = None,
+    plan_cache: bool = True,
+    plan_cache_dir: Optional[str] = None,
 ) -> ListResult:
     """List all k-cliques of ``source`` (Graph or PipelinePlan) into ``sink``.
 
@@ -392,14 +423,19 @@ def stream_cliques(
     k >= 3 (the k <= 2 cases have closed forms; see
     ``ebbkc.list_cliques``).
 
-    Geometry knobs left ``None`` take the reference's historical defaults:
-    ``batch_size=256``, bins ``(32, 64, 128, 256)`` and
-    ``pack_workers=pipeline.default_pack_workers()``; capacities round up
-    to a power of two (the reference's default ``cap_policy``), as
-    :func:`capacity_for` rounds them.  A Graph ``source`` goes through the
-    keyed in-process plan cache.  ``stage_times`` accumulates the stages
-    of :func:`list_batch` plus the front end's ``"extract"`` / ``"pack"``
-    and the sink's ``"emit"``.
+    Geometry knobs left ``None`` (``batch_size``, ``bins``,
+    ``max_capacity``, ``cap_policy``, ``pack_workers``, ``prefetch``)
+    resolve through the persistent autotuner
+    (:func:`repro_torch.tune.search.resolve_geometry`): explicit argument >
+    persisted geometry record > the historical defaults (256, bins
+    ``(32, 64, 128, 256)``, :data:`MAX_CAPACITY`, ``"pow2"``, auto pack
+    workers).  The emitted row stream is identical under every geometry.
+    A Graph ``source`` goes through the keyed plan cache
+    (``plan_cache=False`` opts out; ``plan_cache_dir`` adds the on-disk
+    store).  ``backend`` selects the kernel implementation
+    (:mod:`repro_torch.kernels.ops` registry).  ``stage_times``
+    accumulates the stages of :func:`list_batch` plus the front end's
+    ``"extract"`` / ``"pack"`` and the sink's ``"emit"``.
 
     ``devices`` routes batches through
     :class:`repro_torch.runtime.dispatch.ListDispatcher` instead of
@@ -427,6 +463,10 @@ def stream_cliques(
     stats = Stats()
     res = ListResult(stats)
     l = k - 2
+    geom = tune_search.resolve_geometry(
+        "list", l, batch_size=batch_size, bins=bins, cap_policy=cap_policy,
+        max_capacity=max_capacity, pack_workers=pack_workers,
+        prefetch=prefetch)
     if devices is None:
         dev = resolve_device(device)
         stats.backend = f"torch:{dev.type}"
@@ -435,15 +475,17 @@ def stream_cliques(
         from ..runtime.dispatch import ListDispatcher
         disp = ListDispatcher(
             l, devices, sink=sink, stats=stats, capacity=capacity,
-            max_capacity=max_capacity, et_t=et_t,
-            async_staging=async_staging, max_inflight=max_inflight,
-            stage_times=stage_times)
-    if not isinstance(source, pipeline.PipelinePlan):
-        source = pipeline.cached_plan(source, order=order, stats=stats)
+            max_capacity=geom.max_capacity, cap_policy=geom.cap_policy,
+            et_t=et_t, async_staging=async_staging,
+            max_inflight=max_inflight, stage_times=stage_times,
+            backend=backend)
+    if not isinstance(source, pipeline.PipelinePlan) and plan_cache:
+        source = pipeline.cached_plan(source, order=order,
+                                      cache_dir=plan_cache_dir, stats=stats)
     stream = pipeline.stream_batches(
-        source, k, order=order, use_rule2=use_rule2, batch_size=batch_size,
-        bins=bins, timings=stage_times, pack_workers=pack_workers,
-        stats=stats)
+        source, k, order=order, use_rule2=use_rule2,
+        batch_size=geom.batch_size, bins=geom.bins, timings=stage_times,
+        pack_workers=geom.pack_workers, prefetch=geom.prefetch, stats=stats)
     if devices is not None:
 
         def on_spill(tile: tiles_mod.Tile) -> None:
@@ -462,6 +504,8 @@ def stream_cliques(
             disp.close()
             stream.close()
         stats.sink_bytes += sink.bytes_written
+        stats.kernel_compile_s += kops.consume_compile_s()
+        kops.drain_tune_events(stats)
         return res
     try:
         for item in stream:
@@ -475,8 +519,10 @@ def stream_cliques(
                 res.tiles += item.B
                 res.max_tile = max(res.max_tile, item.T)
                 arr = list_batch(item, l, stats, device=dev,
-                                 capacity=capacity, max_capacity=max_capacity,
-                                 et_t=et_t, stage_times=stage_times)
+                                 capacity=capacity,
+                                 max_capacity=geom.max_capacity,
+                                 cap_policy=geom.cap_policy, et_t=et_t,
+                                 stage_times=stage_times, backend=backend)
             t0 = time.perf_counter()
             fault_retry.consume("sink.write")
             stats.emitted_cliques += sink.emit(arr)
@@ -486,4 +532,6 @@ def stream_cliques(
     finally:
         stream.close()  # stops the pack workers on error too
     stats.sink_bytes += sink.bytes_written
+    stats.kernel_compile_s += kops.consume_compile_s()
+    kops.drain_tune_events(stats)
     return res

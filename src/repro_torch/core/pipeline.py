@@ -12,7 +12,8 @@ it runs vectorized in numpy on the host:
    :class:`PipelinePlan` amortizes all preprocessing across queries on one
    graph.
 2. **Capacity-based streaming batcher** (:func:`stream_batches`): tiles are
-   routed to power-of-two size bins and packed ``batch_size`` at a time
+   routed to size bins (multiples of 32; powers of two by default) and
+   packed ``batch_size`` at a time
    into fixed-shape ``(B, T, W)`` uint32 bitset batches, optionally on a
    pool of pack threads.  Tiles wider than the largest bin are yielded as
    plain :class:`~repro_torch.core.tiles.Tile` objects so the engine can
@@ -23,12 +24,13 @@ byte-identical batches; the pure-Python extractor in
 :mod:`repro_torch.core.tiles` is the oracle.
 
 The reference's ``trace`` spans (``plan/build``, ``plan/build_wait``,
-``extract``, ``pack``, ``pack/wait``, the ``plan/cache_hit`` instant) and
-its ``extract`` / ``pack`` fault sites (an injected fault is retried in
-place before the stage's work) sit where the reference has them.  Still
-to be ported, with the checkpoint slice: ``save_plan`` / ``load_plan`` and
-``cached_plan(cache_dir=...)`` with its ``plan/load`` span and
-``plan.load`` fault site.
+``plan/load``, ``extract``, ``pack``, ``pack/wait``, the
+``plan/cache_hit`` instant) and its fault sites (``plan.load``; ``extract``
+and ``pack``, whose injected faults are retried in place before the
+stage's work) sit where the reference has them.  Plans persist through
+:mod:`repro_torch.checkpoint.store` (:func:`save_plan`, :func:`load_plan`,
+``cached_plan(cache_dir=...)``) in the reference's store format, so a plan
+store written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from .graph import Graph, greedy_coloring, color_vertex_order, ragged_expand
 from .tiles import Tile
 from .truss import TrussDecomposition, truss_decomposition
 from ..obs import trace
+from ..resilience import inject
 from ..resilience import retry as fault_retry
 
 #: power-of-two tile-size bins; tiles wider than the last bin spill to host
@@ -279,7 +282,8 @@ def _as_plan(source: Union[Graph, PipelinePlan]) -> PipelinePlan:
 # keyed in-process plan cache
 # ---------------------------------------------------------------------------
 
-#: plan-key layout version (same value as the reference's PLAN_FORMAT)
+#: plan-key and plan-store layout version (the reference's PLAN_FORMAT:
+#: both packages read and write one store format)
 PLAN_FORMAT = 1
 
 #: in-process plan cache capacity (plans, LRU-evicted); a plan holds the
@@ -320,6 +324,111 @@ def plan_key(g: Graph, order: str = "hybrid") -> str:
     return h.hexdigest()[:24]
 
 
+def save_plan(plan: PipelinePlan, directory: str,
+              lineage: Optional[Dict] = None) -> str:
+    """Persist a plan's built structures via
+    :mod:`repro_torch.checkpoint.store`.
+
+    Saves the graph plus whatever is already built (truss decomposition,
+    coloring, membership tables) -- load never recomputes what was saved.
+    Atomic like every checkpoint (tmp dir + os.replace + COMMITTED).
+    ``lineage`` is an optional JSON dict recording how the plan came to be;
+    it rides in the metadata and is readable without deserializing arrays
+    via :func:`repro_torch.checkpoint.store.read_metadata`.
+    """
+    from ..checkpoint import store
+
+    tree: Dict[str, object] = {
+        "graph": {"n": np.asarray(plan.g.n, np.int64),
+                  "edges": plan.g.edges, "indptr": plan.g.indptr,
+                  "indices": plan.g.indices}}
+    if plan._td is not None:
+        td = plan._td
+        tree["truss_dec"] = {
+            "order": td.order, "rank": td.rank, "support0": td.support0,
+            "peel_support": td.peel_support, "trussness": td.trussness,
+            "tau": np.asarray(td.tau, np.int64)}
+    if plan._colors is not None:
+        tree["colors"] = plan._colors
+    tables: Dict[str, Dict[str, np.ndarray]] = {}
+    for family, tb in plan._tables.items():
+        d = {"edge_id": tb.edge_id, "anchors": tb.anchors,
+             "offsets": tb.offsets, "verts": tb.verts,
+             "thresh": tb.thresh, "ekeys": tb.ekeys}
+        for opt in ("erank", "member_colors", "ncolors", "rule1"):
+            val = getattr(tb, opt)
+            if val is not None:
+                d[opt] = val
+        tables[family] = d
+    if tables:
+        tree["tables"] = tables
+    metadata: Dict[str, object] = {
+        "format": PLAN_FORMAT, "families": sorted(plan._tables)}
+    if lineage is not None:
+        metadata["lineage"] = lineage
+    return store.save_checkpoint(directory, 0, tree, metadata=metadata)
+
+
+def plan_from_arrays(arrays: Dict[str, np.ndarray],
+                     families: Optional[Sequence[str]] = None
+                     ) -> PipelinePlan:
+    """Rebuild a :class:`PipelinePlan` from the flat array names that
+    :func:`save_plan` (and the reference's) writes:
+    ``graph/{n,edges,indptr,indices}``,
+    ``truss_dec/{order,rank,support0,peel_support,trussness,tau}``,
+    ``colors`` and ``tables/<family>/<field>``.  ``families`` names the
+    tables to take (default: every one present).  Absent parts stay
+    unbuilt and are computed on demand."""
+    g = Graph(n=int(arrays["graph/n"]), edges=arrays["graph/edges"],
+              indptr=arrays["graph/indptr"], indices=arrays["graph/indices"])
+    plan = PipelinePlan(g=g)
+    if "truss_dec/rank" in arrays:
+        plan._td = TrussDecomposition(
+            order=arrays["truss_dec/order"], rank=arrays["truss_dec/rank"],
+            support0=arrays["truss_dec/support0"],
+            peel_support=arrays["truss_dec/peel_support"],
+            trussness=arrays["truss_dec/trussness"],
+            tau=int(arrays["truss_dec/tau"]))
+    if "colors" in arrays:
+        plan._colors = arrays["colors"]
+    if families is None:
+        families = sorted({name.split("/")[1] for name in arrays
+                           if name.startswith("tables/")})
+    for family in families:
+        p = f"tables/{family}/"
+        plan._tables[family] = TileTable(
+            family, arrays[p + "edge_id"], arrays[p + "anchors"],
+            arrays[p + "offsets"], arrays[p + "verts"], arrays[p + "thresh"],
+            arrays[p + "ekeys"], arrays.get(p + "erank"),
+            member_colors=arrays.get(p + "member_colors"),
+            ncolors=arrays.get(p + "ncolors"), rule1=arrays.get(p + "rule1"))
+    return plan
+
+
+def load_plan(directory: str) -> Optional[PipelinePlan]:
+    """Restore a :func:`save_plan` plan; None if absent/stale-format.
+
+    Corrupt or truncated stores (failed length+digest check, unreadable
+    npz/meta, or a tree that no longer parses) also read as absent: the
+    bad step is quarantined -- moved aside under ``<dir>/quarantine/``
+    with a warning log -- so the caller rebuilds and re-saves instead of
+    propagating a deserialization traceback (the same fall-back-to-absent
+    contract as the tune records).
+    """
+    from ..checkpoint import store
+
+    got = store.restore_checkpoint_safe(directory, _corrupt_site="plan.load")
+    if got is None or got["metadata"].get("format") != PLAN_FORMAT:
+        return None
+    try:
+        plan = plan_from_arrays(got["tree"],
+                                got["metadata"].get("families", []))
+    except Exception as exc:
+        store.quarantine(directory, reason=f"plan parse failed: {exc!r}")
+        return None
+    return plan
+
+
 def _plan_cache_insert(key: str, plan: PipelinePlan) -> None:
     with _PLAN_CACHE_LOCK:
         _PLAN_CACHE[key] = plan
@@ -335,13 +444,17 @@ def clear_plan_cache() -> None:
 
 
 def cached_plan(g: Graph, order: str = "hybrid", *,
+                cache_dir: Optional[str] = None,
                 stats=None) -> PipelinePlan:
-    """Plan for ``g``/``order`` off the keyed in-process cache; build only
-    on a miss.
+    """Plan for ``g``/``order`` off the keyed cache; build only on a miss.
 
+    Lookup order: in-process LRU (keyed by :func:`plan_key`) -> on-disk
+    plan store under ``cache_dir`` (persisted across processes via
+    :func:`save_plan`) -> build (and save when ``cache_dir`` is given).
     A warm hit skips the O(delta*m) truss/coloring preprocessing entirely;
     ``stats`` (a :class:`~repro_torch.core.engine_np.Stats`) records
-    ``plan_cache_hit`` and the cold-path ``plan_build_s``.
+    ``plan_cache_hit`` and the cold-path ``plan_build_s``.  An injected
+    ``plan.load`` fault, or a corrupt store (quarantined), reads as a miss.
 
     Thread-safe with per-key single-flight building: concurrent misses on
     one key elect exactly one building thread; the others block on its latch and
@@ -379,11 +492,26 @@ def cached_plan(g: Graph, order: str = "hybrid", *,
         with trace.span("plan/build_wait", order=order):
             latch.wait()
     try:
+        if cache_dir is not None:
+            with trace.span("plan/load", order=order):
+                try:
+                    inject.fire("plan.load")
+                    plan = load_plan(os.path.join(cache_dir, key))
+                except inject.FaultInjected:
+                    plan = None  # injected load fault -> a cache miss
+            if plan is not None and family in plan._tables:
+                if stats is not None:
+                    stats.plan_cache_hit = True
+                trace.instant("plan/cache_hit", source="disk", order=order)
+                _plan_cache_insert(key, plan)
+                return plan
         t0 = time.perf_counter()
         with trace.span("plan/build", order=order, n=g.n, m=g.m):
             plan = build_plan(g, order=order)
         if stats is not None:
             stats.plan_build_s += time.perf_counter() - t0
+        if cache_dir is not None:
+            save_plan(plan, os.path.join(cache_dir, key))
         _plan_cache_insert(key, plan)
         return plan
     finally:

@@ -10,7 +10,10 @@ with ``ctypes``: no PyTorch headers are compiled, so a build takes seconds.
 
 Nothing is built when the module is imported; :func:`lib` builds on the
 first kernel launch (or when a caller asks for it, as ``chip_smoke.py``
-does to time the build).
+does to time the build).  :func:`set_build_dir` moves the directory (the
+tune cache points it at ``<tune dir>/kernels``, so a warm process with
+that cache reuses the library built there); a library already loaded in
+this process stays loaded.
 """
 from __future__ import annotations
 
@@ -59,6 +62,20 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def set_build_dir(directory) -> Path:
+    """Build and look up libraries under ``directory`` from now on;
+    returns the previous directory."""
+    global BUILD_DIR
+    with _LOCK:
+        prev, BUILD_DIR = BUILD_DIR, Path(directory)
+    return prev
+
+
+def loaded() -> bool:
+    """True once :func:`lib` has bound a library in this process."""
+    return _LIB is not None
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources unless the library for their hash exists.
 
@@ -66,15 +83,16 @@ def build(verbose: bool = False) -> Path:
     ptxas for its register and shared-memory report (``-Xptxas -v``, which
     changes no code) and prints the compiler's output.
     """
-    out = BUILD_DIR / f"libkernels-{_digest()}.so"
+    build_dir = BUILD_DIR
+    out = build_dir / f"libkernels-{_digest()}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = _nvcc()
     objs, procs = [], []
     for src in _sources():
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        obj = build_dir / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
                "-c", "-o", str(obj), str(src)]
         objs.append(obj)

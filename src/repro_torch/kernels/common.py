@@ -31,8 +31,10 @@ from ..core.bitops import (  # noqa: F401  (re-exported kernel API)
     widen,
 )
 
-#: tile widths the kernels take (the pipeline's bins)
-TILE_WIDTHS = (32, 64, 128, 256)
+#: widest tile the CUDA kernels take (T = 32 * W, 1 <= W <= 8): an item of
+#: the DFS kernels packs its two vertices into 8 bits each.  The plain
+#: versions take any multiple of 32, as the reference does.
+MAX_KERNEL_T = 256
 
 #: guards every kernel module's launch and plain-call counters: the
 #: listing dispatcher's decode worker launches kernels beside the thread
@@ -208,29 +210,42 @@ def to_words(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def row_alignment(W: int) -> int:
+    """Bytes a row of W words is aligned to in an aligned tile: the largest
+    power of two that divides ``4 * W``, at most 16 (16 at W = 4 and 8, 8 at
+    W = 2 and 6, 4 at odd W).  ``csrc/tile_bits.cuh`` ``load_row`` reads a
+    row by loads of this width."""
+    return min(16, (4 * W) & -(4 * W))
+
+
 def check_adjacency(A: torch.Tensor) -> Tuple[int, int, int]:
     """Validate packed tiles for the kernels: a contiguous (B, T, T//32)
-    int32 word view with T one of :data:`TILE_WIDTHS`.  Returns (B, T, W).
+    int32 word view with T a positive multiple of 32.  Returns (B, T, W).
 
-    On the card the kernels read a row by loads of up to 16 bytes
-    (``csrc/tile_bits.cuh`` ``load_row``), so a CUDA tensor must start on a
-    multiple of ``min(16, 4 * W)`` bytes; an offset view that is not
-    raises here instead of faulting on the card.
+    On the card the kernels take T up to :data:`MAX_KERNEL_T` and read a
+    row by loads of :func:`row_alignment` bytes (``csrc/tile_bits.cuh``
+    ``load_row``), so a CUDA tensor must start on a multiple of that; an
+    offset view that does not raises here instead of faulting on the card.
     """
     if A.dtype != torch.int32:
         raise TypeError(f"packed words must be an int32 view, got {A.dtype}")
     if A.dim() != 3:
         raise ValueError(f"A must be (B, T, W), got shape {tuple(A.shape)}")
     B, T, W = A.shape
-    if T not in TILE_WIDTHS or W != T // WORD:
+    if T < WORD or T % WORD or W != T // WORD:
         raise ValueError(
-            f"tile shape (T={T}, W={W}) must have T in {TILE_WIDTHS} and "
-            f"W == T // 32")
+            f"tile shape (T={T}, W={W}) must have T a positive multiple of "
+            f"32 and W == T // 32")
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
-    if A.device.type == "cuda" and A.data_ptr() % min(16, 4 * W):
-        raise ValueError(f"A must start on a {min(16, 4 * W)}-byte boundary "
-                         f"on the card (the kernels load whole rows)")
+    if A.device.type == "cuda":
+        if T > MAX_KERNEL_T:
+            raise ValueError(f"the CUDA kernels take T <= {MAX_KERNEL_T}, "
+                             f"got T={T}")
+        if A.data_ptr() % row_alignment(W):
+            raise ValueError(f"A must start on a {row_alignment(W)}-byte "
+                             f"boundary on the card (the kernels load whole "
+                             f"rows)")
     return B, T, W
 
 

@@ -17,10 +17,13 @@
 //     second-level branches (tile b, v, x), up to T * (T - 1) / 2 a tile,
 //     run by a persistent grid sized from the occupancy calculator and the
 //     SM count, so a 256-tile batch fills every SM with as many warps as fit;
-//   - idle lanes: a group of W = T/32 lanes runs one item, lane r owning
-//     word r of every stack level; at T = 32 each thread walks its own DFS
-//     with __ffs/__popc and no warp collective; the closes deal the set's
-//     vertices round robin over the group's lanes;
+//   - idle lanes: a group of P lanes runs one item, P = W = T/32 rounded
+//     up to a power of two, lane r < W owning word r of every stack level
+//     (at W = 3, 5, 6, 7 lanes r >= W own a zero word: the tile is not
+//     padded to the next power of two, so its loads and its DFS stay at W
+//     words); at T = 32 each thread walks its own DFS with __ffs/__popc and
+//     no warp collective; the closes deal the set's vertices round robin
+//     over all P lanes;
 //   - shared memory sized for the widest bin: only the todo stack lives in
 //     shared memory, (l - 5) words a thread, dynamic, so every l <= T runs
 //     (opted in above 48 KB, and in smaller blocks where 256 threads' stack
@@ -59,7 +62,11 @@ int count_launch(const void* A, const void* cand, void* out, void* per, void* li
   switch (T) {
     case 32: err = launch_items<1, kOut>(a, c, li, ctr, o, p, B, l, st); break;
     case 64: err = launch_items<2, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 96: err = launch_items<3, kOut>(a, c, li, ctr, o, p, B, l, st); break;
     case 128: err = launch_items<4, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 160: err = launch_items<5, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 192: err = launch_items<6, kOut>(a, c, li, ctr, o, p, B, l, st); break;
+    case 224: err = launch_items<7, kOut>(a, c, li, ctr, o, p, B, l, st); break;
     case 256: err = launch_items<8, kOut>(a, c, li, ctr, o, p, B, l, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -73,7 +80,7 @@ int count_launch(const void* A, const void* cand, void* out, void* per, void* li
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B,) uint32, list: room for
 // B * T * (T + 1) / 2 uint32 items, counters: two uint32, all device
 // pointers, out and counters zeroed by the caller; 1 <= l <= T, B < 2^16,
-// T in {32, 64, 128, 256}.  Launches the branch and item passes on `stream`
+// T = 32 * W with 1 <= W <= 8.  Launches the branch and item passes on `stream`
 // and returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
 // does not take, or the error of the item pass's shared-memory opt-in).
 extern "C" int clique_count_tiles_launch(const void* A, const void* cand, void* out, void* list,

@@ -35,12 +35,13 @@
 //   precedes every row under a later (v', x') and the item blocks in (v, x)
 //   order are exactly the per-tile DFS's buffer.  Inside an item, ranks
 //   come from prefix sums, never atomics: a close deals the set's vertices
-//   round robin over the group's W lanes, each lane counts the rows it
+//   round robin over the group's P lanes, each lane counts the rows it
 //   completes, a group scan gives each lane its first rank, and each lane
-//   writes its rows ascending.  As in the count kernel, a group of
-//   W = T/32 lanes runs one item on a persistent grid, the todo stack and
-//   the branch prefix are the only shared memory (sized by l and W), and A
-//   is read through L1/L2.  Items that were first-level branches, as a
+//   writes its rows ascending.  As in the count kernel, a group of P lanes
+//   (W = T/32 rounded up to a power of two; lanes r >= W own a zero word)
+//   runs one item on a persistent grid, the todo stack and the branch
+//   prefix are the only shared memory (sized by l and P), and A is read
+//   through L1/L2.  Items that were first-level branches, as a
 //   first version of this design had, took 2.7x the warp-per-tile kernel's
 //   time on an overflowed k = 6 T = 64 batch: its first branches wrote most
 //   of each tile's 16,384 rows with W = 2 lanes.
@@ -78,9 +79,10 @@ template <int W>
 __device__ __forceinline__ unsigned long long emit_edges(
     const Group<W>& g, const uint32_t* __restrict__ At, const uint32_t (&sub)[W], int nsub,
     const int* pf, int pstride, const Rows& out, unsigned long long total) {
+  constexpr int P = Group<W>::P;
   const unsigned long long cap = static_cast<unsigned long long>(out.capacity);
   Stride<W> it(sub, g.r);
-  for (int done = 0; done < nsub && total < cap; done += W) {
+  for (int done = 0; done < nsub && total < cap; done += P) {
     const int u = it.next();  // lane r: the sub's vertex of rank done + r
     uint32_t nb[W];
     uint32_t c = 0;
@@ -98,7 +100,7 @@ __device__ __forceinline__ unsigned long long emit_edges(
       for (int w2 = take_lowest<W>(nb); w2 >= 0 && dest < cap; w2 = take_lowest<W>(nb))
         put_row(out, dest++, pf, pstride, out.l - 2, u, w2);
     }
-    total += g.shfl(incl, W - 1);
+    total += g.shfl(incl, P - 1);
   }
   return total;
 }
@@ -150,7 +152,7 @@ __device__ __forceinline__ void emit_cliques(const Group<W>& g, const uint32_t* 
     const int y = (wl << 5) + __ffs(word) - 1;
     const uint32_t after = g.r == wl ? (mine & (mine - 1u)) : mine;
     *todo = after;
-    const uint32_t u = after & __ldg(At + y * W + g.r);
+    const uint32_t u = after & g.word(At + y * W);
     const int nu = static_cast<int>(g.sum(__popc(u)));
     if (depth == k - 3) {  // two levels left: emit the edges of u
       if (nu >= 2) {
@@ -183,8 +185,8 @@ list_emit_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ ca
   const int levels = l > 4 ? l - 4 : 1;
   const int threads = kFull ? kItemThreads : static_cast<int>(blockDim.x);
   uint32_t* stack = list_smem + threadIdx.x;  // level-major: no bank conflicts
-  const int groups = threads / W;
-  int* pf = reinterpret_cast<int*>(list_smem + levels * threads) + threadIdx.x / W;
+  const int groups = threads / Group<W>::P;
+  int* pf = reinterpret_cast<int*>(list_smem + levels * threads) + threadIdx.x / Group<W>::P;
   const unsigned n = *n_list;
   for (unsigned i = next_item(g, counter); i < n; i = next_item(g, counter)) {
     const uint32_t item = list[i];
@@ -279,12 +281,14 @@ cudaError_t launch_list(const uint32_t* A, const uint32_t* cand, int* rows, uint
   list_scan_kernel<<<B, kScanThreads, 0, stream>>>(per_x, rows, count, overflow, W * 32, l,
                                                    capacity);
   // the todo stack (l - 4 words a thread) and the prefix (l - 2 entries a
-  // group of W threads)
+  // group of Group<W>::P threads)
   const int levels = l > 4 ? l - 4 : 1;
   const int prefix = l > 4 ? l - 2 : 2;
   int threads = 0, smem = 0;
   err = item_block(
-      [&](int t) { return (levels * t + prefix * (t / W)) * static_cast<int>(sizeof(uint32_t)); },
+      [&](int t) {
+        return (levels * t + prefix * (t / Group<W>::P)) * static_cast<int>(sizeof(uint32_t));
+      },
       &threads, &smem);
   if (err != cudaSuccess) return err;
   if (threads == kItemThreads)
@@ -301,7 +305,7 @@ cudaError_t launch_list(const uint32_t* A, const uint32_t* cand, int* rows, uint
 // count and overflow: (B,) uint32, per_x: B * T * T uint64 and counters:
 // three uint32, both zeroed by the caller, list: room for B * T * (T + 1) / 2
 // uint32 items, all device pointers; 1 <= l <= T, capacity >= 1,
-// B < 2^16, T in {32, 64, 128, 256}.  Launches four kernels on `stream` and
+// B < 2^16, T = 32 * W with 1 <= W <= 8.  Launches four kernels on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
 // does not take, or the error of a shared-memory opt-in).
 extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* out,
@@ -325,7 +329,11 @@ extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* o
   switch (T) {
     case 32: err = launch_list<1>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
     case 64: err = launch_list<2>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 96: err = launch_list<3>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
     case 128: err = launch_list<4>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 160: err = launch_list<5>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 192: err = launch_list<6>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
+    case 224: err = launch_list<7>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
     case 256: err = launch_list<8>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -19,10 +19,15 @@
 // is large enough to set a launch's time alone; first-level branches were
 // (the heaviest took most of a T = 64 batch's time on the H100).
 //
-// A group of W = T/32 lanes runs one item; lane r owns word r of every
-// stack level, so at T = 32 every thread walks its own DFS and a warp runs
-// 32 items.  The todo stack is dynamic shared memory sized by l, so any
-// l <= T runs (item_block picks the block that holds it).
+// A group of P lanes runs one item, P = W = T/32 rounded up to a power of
+// two (1, 2, 4, 4, 8, 8, 8, 8 for W = 1..8); lane r < W owns word r of
+// every stack level and lanes r >= W own a zero word, so at T = 32 every
+// thread walks its own DFS and a warp runs 32 items.  Ballots, shuffles,
+// sums and scans run over the P lanes (a warp's shuffles take only
+// power-of-two widths), the word arrays stay W long, and the closes deal
+// a set's vertices over all P lanes.  The todo stack is dynamic shared
+// memory sized by l, so any l <= T runs (item_block picks the block that
+// holds it).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -49,37 +54,54 @@ __device__ __forceinline__ uint32_t pack_item(int b, int v, int x) {
          static_cast<uint32_t>(x);
 }
 
-// The W lanes of a warp that run one item.  Every decision the DFS takes is
-// made from a group-wide ballot, shuffle or sum, so the group's control flow
-// stays uniform while the groups of one warp diverge freely.
+// The smallest power of two >= w.
+__host__ __device__ constexpr int next_pow2(int w) {
+  int p = 1;
+  while (p < w) p <<= 1;
+  return p;
+}
+
+// The P lanes of a warp that run one item (P = next_pow2(W)).  Every
+// decision the DFS takes is made from a group-wide ballot, shuffle or sum,
+// so the group's control flow stays uniform while the groups of one warp
+// diverge freely.
 template <int W>
 struct Group {
-  int r;          // rank in the group: the word this lane owns
+  static constexpr int P = next_pow2(W);  // lanes of the group
+  int r;          // rank in the group: the word this lane owns, if r < W
   unsigned mask;  // the group's lanes within the warp
 
   __device__ Group() {
     const int lane = threadIdx.x & 31;
-    r = lane & (W - 1);
-    mask = ((1u << W) - 1u) << (lane & ~(W - 1));
+    r = lane & (P - 1);
+    mask = ((1u << P) - 1u) << (lane & ~(P - 1));
+  }
+  // This lane's word of the W-word set at p: word r, or 0 for r >= W.
+  __device__ uint32_t word(const uint32_t* __restrict__ p) const {
+    if constexpr (W == P) {
+      return __ldg(p + r);
+    } else {
+      return r < W ? __ldg(p + r) : 0u;
+    }
   }
   __device__ unsigned ballot(bool p) const {
-    if constexpr (W == 1) {
+    if constexpr (P == 1) {
       return p ? 1u : 0u;
     } else {
-      return (__ballot_sync(mask, p) >> ((threadIdx.x & 31) & ~(W - 1))) &
-             ((1u << W) - 1u);
+      return (__ballot_sync(mask, p) >> ((threadIdx.x & 31) & ~(P - 1))) &
+             ((1u << P) - 1u);
     }
   }
   template <class X>
   __device__ X shfl(X x, int src) const {
-    if constexpr (W == 1) {
+    if constexpr (P == 1) {
       return x;
     } else {
-      return __shfl_sync(mask, x, src, W);
+      return __shfl_sync(mask, x, src, P);
     }
   }
   __device__ uint32_t sum(uint32_t x) const {
-    if constexpr (W == 1) {
+    if constexpr (P == 1) {
       return x;
     } else {
       return __reduce_add_sync(mask, x);
@@ -87,14 +109,14 @@ struct Group {
   }
   __device__ uint32_t inclusive_scan(uint32_t x) const {
 #pragma unroll
-    for (int o = 1; o < W; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(mask, x, o, W);
+    for (int o = 1; o < P; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(mask, x, o, P);
       if (r >= o) x += y;
     }
     return x;
   }
   __device__ void sync() const {
-    if constexpr (W > 1) __syncwarp(mask);
+    if constexpr (P > 1) __syncwarp(mask);
   }
   // All W words of a value whose word w lane w holds.
   __device__ void gather(uint32_t mine, uint32_t (&all)[W]) const {
@@ -132,10 +154,11 @@ __device__ __forceinline__ int take_lowest(uint32_t (&m)[W]) {
   return -1;
 }
 
-// The set bits of a W-word set dealt round robin over the group's lanes:
-// lane r gets the set bits of rank r, r + W, r + 2W, ... in ascending order.
+// The set bits of a W-word set dealt round robin over the group's P lanes:
+// lane r gets the set bits of rank r, r + P, r + 2P, ... in ascending order.
 template <int W>
 struct Stride {
+  static constexpr int P = Group<W>::P;
   uint32_t m[W];
 
   __device__ __forceinline__ Stride(const uint32_t (&set)[W], int r) {
@@ -145,7 +168,7 @@ struct Stride {
   }
   __device__ __forceinline__ int next() {
     const int v = take_lowest<W>(m);
-    for (int i = 1; i < W; ++i) take_lowest<W>(m);
+    for (int i = 1; i < P; ++i) take_lowest<W>(m);
     return v;
   }
 };
@@ -197,8 +220,8 @@ __device__ __forceinline__ uint32_t second_branch(const Group<W>& g,
                                                   const uint32_t* __restrict__ At,
                                                   const uint32_t* __restrict__ cand_b, int v,
                                                   int x, int* nt) {
-  const uint32_t t = __ldg(cand_b + g.r) & __ldg(At + v * W + g.r) & __ldg(At + x * W + g.r) &
-                     gt_word(x, g.r);
+  const uint32_t t =
+      g.word(cand_b) & g.word(At + v * W) & g.word(At + x * W) & gt_word(x, g.r);
   *nt = static_cast<int>(g.sum(__popc(t)));
   return t;
 }
@@ -236,7 +259,7 @@ __device__ __forceinline__ unsigned long long cliques_in(const Group<W>& g,
     const uint32_t after = g.r == wl ? (mine & (mine - 1u)) : mine;
     *todo = after;
     // u = after & A[y]: the todo's vertices above y that are adjacent to y
-    const uint32_t u = after & __ldg(At + y * W + g.r);
+    const uint32_t u = after & g.word(At + y * W);
     const int nu = static_cast<int>(g.sum(__popc(u)));
     if (depth == k - 4) {  // three levels left: close
       if (nu >= 3) {
@@ -263,14 +286,15 @@ branch_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
               uint32_t* __restrict__ list, unsigned* __restrict__ n_list, int B, int l) {
   constexpr int T = W * 32;
   const Group<W> g;
-  const unsigned item = blockIdx.x * (kItemThreads / W) + threadIdx.x / W;
+  constexpr int P = Group<W>::P;
+  const unsigned item = blockIdx.x * (kItemThreads / P) + threadIdx.x / P;
   if (item >= static_cast<unsigned>(T) * B) return;  // the whole group leaves
   const int v = static_cast<int>(item / B);
   const int b = static_cast<int>(item % B);
   const uint32_t* At = A + static_cast<size_t>(b) * T * W;
-  const uint32_t cw = __ldg(cand + static_cast<size_t>(b) * W + g.r);
+  const uint32_t cw = g.word(cand + static_cast<size_t>(b) * W);
   if (!((g.shfl(cw, v >> 5) >> (v & 31)) & 1u)) return;  // v not in cand
-  const uint32_t s = cw & __ldg(At + v * W + g.r) & gt_word(v, g.r);
+  const uint32_t s = cw & g.word(At + v * W) & gt_word(v, g.r);
   if (static_cast<int>(g.sum(__popc(s))) < l - 1) return;
   uint32_t sub[W];
   g.gather(s, sub);
@@ -293,8 +317,8 @@ branch_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
   }
   const uint32_t incl = g.inclusive_scan(n);
   unsigned base = 0;
-  if (g.r == W - 1 && incl) base = atomicAdd(n_list, incl);
-  base = g.shfl(base, W - 1) + (incl - n);
+  if (g.r == P - 1 && incl) base = atomicAdd(n_list, incl);
+  base = g.shfl(base, P - 1) + (incl - n);
   if (l == 1) {
     if (n) list[base] = pack_item(b, v, v);
     return;
@@ -411,7 +435,7 @@ cudaError_t launch_items(const uint32_t* A, const uint32_t* cand, uint32_t* list
                          unsigned* counters, uint32_t* out, unsigned long long* per, int B,
                          int l, cudaStream_t stream) {
   const long long firsts = static_cast<long long>(W) * 32 * B;
-  const int groups = kItemThreads / W;
+  const int groups = kItemThreads / Group<W>::P;
   const int branch_blocks = static_cast<int>((firsts + groups - 1) / groups);
   auto branch = branch_kernel<W>;
   branch<<<branch_blocks, kItemThreads, 0, stream>>>(A, cand, list, counters, B, l);

@@ -11,7 +11,7 @@
 // Design: one thread per tile, 64 threads a block, so a batch spreads over
 //   B / 64 SMs and no thread waits on another.  The thread loads its pair
 //   once (8 bytes), then both rows with the widest loads a row allows (16
-//   bytes at W >= 4), and writes its W words and its count, zero-extended
+//   bytes at W = 4 and 8, 8 at W = 2 and 6, 4 at odd W), and writes its W words and its count, zero-extended
 //   into an int64, itself: the wrapper runs no op after the launch.  (A
 //   warp per tile that loads the whole tile beside the pair, to take the
 //   row loads out of the chain, was measured no faster on the H100 and
@@ -59,8 +59,8 @@ void launch(const void* A, const void* pairs, void* cand, void* n, int B, cudaSt
 }  // namespace repro_torch
 
 // A: (B, T, T/32) words, pairs: (B, 2) int32 local ids in [0, T), 8-byte
-// aligned, cand: (B, T/32) words, n: (B,) int64, all device pointers; T in
-// {32, 64, 128, 256}.  Launches on `stream` and returns cudaGetLastError()
+// aligned, cand: (B, T/32) words, n: (B,) int64, all device pointers;
+// T = 32 * W with 1 <= W <= 8.  Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a T it does not take).
 extern "C" int edge_candidates_launch(const void* A, const void* pairs, void* cand, void* n,
                                       int B, int T, void* stream) {
@@ -70,7 +70,11 @@ extern "C" int edge_candidates_launch(const void* A, const void* pairs, void* ca
     switch (T) {
       case 32: launch<1>(A, pairs, cand, n, B, st); break;
       case 64: launch<2>(A, pairs, cand, n, B, st); break;
+      case 96: launch<3>(A, pairs, cand, n, B, st); break;
       case 128: launch<4>(A, pairs, cand, n, B, st); break;
+      case 160: launch<5>(A, pairs, cand, n, B, st); break;
+      case 192: launch<6>(A, pairs, cand, n, B, st); break;
+      case 224: launch<7>(A, pairs, cand, n, B, st); break;
       case 256: launch<8>(A, pairs, cand, n, B, st); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -24,13 +24,22 @@ __device__ __forceinline__ bool has_bit(const uint32_t* set, int v) {
   return (set[v >> 5] >> (v & 31)) & 1u;
 }
 
-// Words 0..W-1 of one row through the read-only path, by 16-byte loads
-// where a row has four or more, 8-byte loads at W = 2.  The row must start
-// on a multiple of 4 * W bytes (so of 16 at W >= 4), as every row of an
-// aligned (B, T, W) tile does.
+// The bytes a row of W words is aligned to in an aligned (B, T, W) tile:
+// rows start 4 * W bytes apart, so the largest power of two dividing 4 * W,
+// at most 16 (16 at W = 4 and 8, 8 at W = 2 and 6, 4 at W = 1, 3, 5 and 7).
+// The wrappers demand it of a tile's start (common.py row_alignment).
+template <int W>
+__host__ __device__ constexpr int row_align() {
+  return (4 * W) % 16 == 0 ? 16 : (4 * W) % 8 == 0 ? 8 : 4;
+}
+
+// Words 0..W-1 of one row through the read-only path, by the widest loads
+// its alignment allows: W / 4 16-byte loads at W = 4 and 8, W / 2 8-byte
+// loads at W = 2 and 6, W 4-byte loads at odd W.  The row must start on a
+// multiple of row_align<W>() bytes, as every row of an aligned tile does.
 template <int W>
 __device__ __forceinline__ void load_row(const uint32_t* __restrict__ p, uint32_t (&x)[W]) {
-  if constexpr (W >= 4) {
+  if constexpr (row_align<W>() == 16) {
 #pragma unroll
     for (int q = 0; q < W / 4; ++q) {
       const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + q);
@@ -39,12 +48,16 @@ __device__ __forceinline__ void load_row(const uint32_t* __restrict__ p, uint32_
       x[4 * q + 2] = t.z;
       x[4 * q + 3] = t.w;
     }
-  } else if constexpr (W == 2) {
-    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-    x[0] = t.x;
-    x[1] = t.y;
+  } else if constexpr (row_align<W>() == 8) {
+#pragma unroll
+    for (int q = 0; q < W / 2; ++q) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p) + q);
+      x[2 * q] = t.x;
+      x[2 * q + 1] = t.y;
+    }
   } else {
-    x[0] = __ldg(p);
+#pragma unroll
+    for (int w = 0; w < W; ++w) x[w] = __ldg(p + w);
   }
 }
 

@@ -26,10 +26,10 @@
 //     loop over u fetches U_u by __shfl_sync (a word that no row holds, as
 //     under an empty cand, is skipped); a lane whose row holds u adds
 //     popc(U_v & U_u).  __reduce_add_sync sums the lanes.
-//   - tri_block_rows, T >= 128: a block of 32 warps per tile.  The rows
+//   - tri_block_rows, T >= 96: a block of 32 warps per tile.  The rows
 //     are masked once into shared memory, word-major, so that 32 lanes reading
 //     32 consecutive rows' word w hit 32 banks.  Warps take the rows v in
-//     a stride (4 or 8 rows a warp: a row's steps wait on shared-memory
+//     a stride (W = 3..8 rows a warp: a row's steps wait on shared-memory
 //     loads, so many short row lists in flight beat a few long ones);
 //     within a row lane L takes the vertices u = 32 * w + L, so the set
 //     bits of a dense row spread over 32 lanes, and does the (W - w)-word
@@ -177,7 +177,7 @@ int launch(const uint32_t* A, const uint32_t* cand, long long* out, int B, cudaS
 }  // namespace repro_torch
 
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B,) int64, all device
-// pointers; T in {32, 64, 128, 256}.  Launches on `stream` and returns
+// pointers; T = 32 * W with 1 <= W <= 8.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for another T).
 extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void* out, int B,
                                            int T, void* stream) {
@@ -190,7 +190,11 @@ extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void
   switch (T) {
     case 32: return launch<1>(a, c, o, B, st);
     case 64: return launch<2>(a, c, o, B, st);
+    case 96: return launch<3>(a, c, o, B, st);
     case 128: return launch<4>(a, c, o, B, st);
+    case 160: return launch<5>(a, c, o, B, st);
+    case 192: return launch<6>(a, c, o, B, st);
+    case 224: return launch<7>(a, c, o, B, st);
     case 256: return launch<8>(a, c, o, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

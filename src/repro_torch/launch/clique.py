@@ -29,8 +29,19 @@ counts and rows stay exact through retries (and, on CPU lanes,
 demotions to the host); on the card a launch whose retries run out
 raises.
 
-Still to be ported from the reference launcher: ``--backend``,
-``--plan-cache``, ``--tune-cache``.
+Persistence and tuning, as in the reference launcher: ``--plan-cache
+DIR`` keeps the PipelinePlan (truss order and tile tables) on disk under
+DIR, keyed by the graph's content, so a later process on the same graph
+loads it instead of building it; ``--tune-cache DIR`` (or
+``REPRO_TORCH_TUNE_CACHE``) reads tuned geometry records from DIR and
+keeps the CUDA kernel library in ``DIR/kernels``; ``--backend`` picks the
+kernel implementation of ``repro_torch.kernels.ops`` (``auto``, ``cuda``,
+``torch``, ``ref``, ``autotune``; also ``REPRO_TORCH_BACKEND``).
+
+Graph specs are the reference's (``rmat:S``, ``er:n,p``, ``powerlaw:n``,
+``planted:n``, seed 7), and ``rmat:S,EF`` also sets the RMAT edge factor
+(default 8): ``rmat:15,16`` is the Graph500-shaped graph of
+``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -48,16 +59,22 @@ from ..obs import metrics as obs_metrics
 from ..obs import trace
 from ..obs.export import MetricsServer
 from ..obs.logging import LEVELS, get_logger, setup_logging
+from ..kernels import ops as kops
 from ..resilience import inject
 from ..runtime.dispatch import Dispatcher, dispatch_scheduled, resolve_devices
+from .. import tune
+from ..tune import search as tune_search
 
 
 def load_graph(desc: str) -> Graph:
     """The reference launcher's graph specs: ``rmat:S``, ``er:n,p``,
-    ``powerlaw:n``, ``planted:n`` (seed 7)."""
+    ``powerlaw:n``, ``planted:n`` (seed 7); ``rmat:S,EF`` sets the edge
+    factor (default 8)."""
     kind, _, arg = desc.partition(":")
     if kind == "rmat":
-        return gdata.rmat_graph(int(arg or 12), edge_factor=8, seed=7)
+        scale, _, ef = arg.partition(",")
+        return gdata.rmat_graph(int(scale or 12), edge_factor=int(ef or 8),
+                                seed=7)
     if kind == "er":
         n, p = arg.split(",")
         return gdata.erdos_renyi(int(n), float(p), seed=7)
@@ -97,10 +114,29 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=5)
     ap.add_argument("--order", default="hybrid")
     ap.add_argument("--batch-size", type=int, default=None,
-                    help="tiles per packed batch (default 256)")
+                    help="tiles per packed batch (default: tuned geometry "
+                         "record if present, else 256)")
     ap.add_argument("--pack-workers", type=int, default=None,
-                    help="parallel pack-producer threads (default auto; "
-                         "0 = serial inline packing)")
+                    help="parallel pack-producer threads (default: tuned "
+                         "geometry record if present, else auto; 0 = "
+                         "serial inline packing)")
+    ap.add_argument("--backend", default=None, choices=list(kops.BACKENDS),
+                    help="kernel backend (repro_torch.kernels.ops "
+                         "registry); default auto = the CUDA kernels on the "
+                         "card, the plain torch versions with --device cpu; "
+                         "also settable via REPRO_TORCH_BACKEND")
+    ap.add_argument("--plan-cache", default=None, metavar="DIR",
+                    help="persist the PipelinePlan (truss order + tile "
+                         "tables) under DIR, keyed by graph content: a "
+                         "repeated invocation on the same graph skips the "
+                         "O(delta m) decomposition entirely")
+    ap.add_argument("--tune-cache", default=None, metavar="DIR",
+                    help="persistent autotuner directory "
+                         "(repro_torch.tune): backend/geometry tuning "
+                         "records plus the CUDA kernel library, so a "
+                         "repeated invocation skips microbenchmarks and "
+                         "the nvcc build; also settable via "
+                         "REPRO_TORCH_TUNE_CACHE")
     ap.add_argument("--device", default="cuda",
                     help='torch device to count on (default "cuda"; '
                          '"cpu" runs the plain torch versions)')
@@ -157,6 +193,8 @@ def main(argv=None) -> int:
     if args.fault_plan:
         inject.configure(args.fault_plan)
         print(f"fault injection: {args.fault_plan}")
+    if args.tune_cache:
+        tune.configure(args.tune_cache)
     try:
         g = load_graph(args.graph)
         log.info("loaded %s: n=%d m=%d", args.graph, g.n, g.m)
@@ -164,12 +202,27 @@ def main(argv=None) -> int:
         device = engine_torch.resolve_device(args.device)
         devices = parse_devices(args.devices, device)
         t0 = time.perf_counter()
-        plan = pipeline.cached_plan(g, order=args.order)
+        plan_stats = Stats()
+        plan = pipeline.cached_plan(g, order=args.order,
+                                    cache_dir=args.plan_cache,
+                                    stats=plan_stats)
         t_plan = time.perf_counter() - t0
+        if args.plan_cache:
+            src = ("warm (decomposition skipped)"
+                   if plan_stats.plan_cache_hit else
+                   f"cold (built in {plan_stats.plan_build_s:.2f}s, saved)")
+            print(f"plan cache [{args.plan_cache}]: {src}, "
+                  f"{t_plan:.2f}s")
+        geom = tune_search.resolve_geometry(
+            "list" if args.list_mode else "count", args.k - 2,
+            batch_size=args.batch_size, pack_workers=args.pack_workers)
+        print(f"geometry: bins={','.join(map(str, geom.bins))} "
+              f"batch_size={geom.batch_size} cap_policy={geom.cap_policy} "
+              f"pack_workers={geom.pack_workers}")
         if args.list_mode:
-            rc, stats = _list(args, g, plan, devices)
+            rc, stats = _list(args, g, plan, devices, geom)
         else:
-            rc, stats = _count(args, g, plan, devices, t_plan)
+            rc, stats = _count(args, g, plan, devices, t_plan, geom)
         _finish_obs(args, stats, metrics_server)
         metrics_server = None
         return rc
@@ -182,10 +235,12 @@ def main(argv=None) -> int:
             trace.configure(enabled=False)
         if args.fault_plan:
             inject.configure(None)
+        if args.tune_cache:
+            tune.configure(None)
 
 
 def _count(args, g: Graph, plan: pipeline.PipelinePlan, devices,
-           t_plan: float):
+           t_plan: float, geom: tune_search.Geometry):
     """Counting: stream the batches through the dispatcher (online or
     offline LPT); with ``--verify``, hold the total against the host
     engine.  Returns (exit code, the run's Stats)."""
@@ -194,10 +249,10 @@ def _count(args, g: Graph, plan: pipeline.PipelinePlan, devices,
     stats = Stats()
     stage = {}
     stream = pipeline.stream_batches(plan, args.k, order=args.order,
-                                     batch_size=args.batch_size,
-                                     timings=stage,
-                                     pack_workers=args.pack_workers,
-                                     stats=stats)
+                                     batch_size=geom.batch_size,
+                                     bins=geom.bins, timings=stage,
+                                     pack_workers=geom.pack_workers,
+                                     prefetch=geom.prefetch, stats=stats)
     t0 = time.perf_counter()
     info = {}
     n_batches = 0
@@ -219,13 +274,14 @@ def _count(args, g: Graph, plan: pipeline.PipelinePlan, devices,
             got, info = dispatch_scheduled(
                 batches, l, devices, mesh=mesh,
                 async_staging=not args.sync_staging, stats=stats,
-                stage_times=stage)
+                stage_times=stage, backend=args.backend)
             total += got
         else:
             # streaming: pack(i+1) on the host overlaps kernel(i) on lanes
             disp = Dispatcher(l, devices, mesh=mesh,
                               async_staging=not args.sync_staging,
-                              stats=stats, stage_times=stage)
+                              stats=stats, stage_times=stage,
+                              backend=args.backend)
             for item in stream:
                 if isinstance(item, tiles_mod.Tile):
                     n_tiles += 1
@@ -258,7 +314,8 @@ def _count(args, g: Graph, plan: pipeline.PipelinePlan, devices,
           f"(plan {t_plan:.2f}s, front-to-finish {t_count:.2f}s, "
           f"of which extract+pack {t_pack:.2f}s, "
           f"device {stage.get('device', 0.0):.2f}s)")
-    print(f"retries={stats.retries} demotions={stats.demotions}")
+    print(f"retries={stats.retries} demotions={stats.demotions} "
+          f"tune={stats.tune_s:.2f}s tune_hit={stats.tune_cache_hit}")
     if args.verify:
         ref = ebbkc.count(g, args.k, order=args.order, plan=plan,
                           backend="host").count
@@ -268,7 +325,8 @@ def _count(args, g: Graph, plan: pipeline.PipelinePlan, devices,
     return 0, stats
 
 
-def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices):
+def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices,
+          geom: tune_search.Geometry):
     """``--list``: stream the cliques into the sink; with ``--verify``,
     hold the rows as a set against the host recursion's and their number
     against the host count.  Returns (exit code, the run's Stats)."""
@@ -277,10 +335,14 @@ def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices):
     stage = {}
     t0 = time.perf_counter()
     res = listing.stream_cliques(plan, args.k, sink, order=args.order,
-                                 batch_size=args.batch_size,
-                                 pack_workers=args.pack_workers,
+                                 batch_size=geom.batch_size, bins=geom.bins,
+                                 cap_policy=geom.cap_policy,
+                                 max_capacity=geom.max_capacity,
+                                 pack_workers=geom.pack_workers,
+                                 prefetch=geom.prefetch,
                                  stage_times=stage, devices=devices,
-                                 async_staging=not args.sync_staging)
+                                 async_staging=not args.sync_staging,
+                                 backend=args.backend)
     t_list = time.perf_counter() - t0
     sink.close()
     st = res.stats
@@ -293,7 +355,8 @@ def _list(args, g: Graph, plan: pipeline.PipelinePlan, devices):
           f"backend={st.backend} "
           f"pack_workers={st.pack_workers} device={stage.get('device', 0.0):.2f}s "
           f"decode={stage.get('decode', 0.0):.2f}s "
-          f"retries={st.retries} demotions={st.demotions}")
+          f"retries={st.retries} demotions={st.demotions} "
+          f"tune={st.tune_s:.2f}s tune_hit={st.tune_cache_hit}")
     if not args.verify:
         return 0, st
     rows = (np.load(args.sink)["cliques"] if args.sink else sink.result())

@@ -33,8 +33,7 @@ same sites, plan grammar and schedule, so one plan fires at the same
 calls in both packages.  One difference: the port arms a plan from an
 environment variable of its own, ``REPRO_TORCH_FAULT_PLAN``, so an
 environment set up for the reference's chaos runs leaves the port
-unarmed.  The sites ``plan.load`` and ``tune.read`` have no caller in
-the port yet.
+unarmed.
 """
 
 from __future__ import annotations

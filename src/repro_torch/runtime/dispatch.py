@@ -58,9 +58,14 @@ and demotes on any ``Exception``, only ``inject.FaultInjected`` is
 retried or demoted here: a real failure -- a failed build, a refused
 launch, a device fault -- raises at once.
 
-Left out of this port: ``engine_jax.bucket_rows``, deliberately (an eager
-CUDA launch compiles nothing per shape), and ``kops.consume_compile_s`` /
-``drain_tune_events`` (A6).
+Both dispatchers take the kernel ``backend`` of the registry
+(:mod:`repro_torch.kernels.ops`) and, at ``finish``, drain the one-time
+kernel seconds (``kops.consume_compile_s``) and the tuning events
+(``kops.drain_tune_events``) into their Stats, as the reference's do; the
+``ListDispatcher`` sizes its buffers under the geometry's ``cap_policy``.
+
+Left out of this port, deliberately: ``engine_jax.bucket_rows`` (an eager
+CUDA launch compiles nothing per shape).
 """
 from __future__ import annotations
 
@@ -80,7 +85,6 @@ from ..convert import batch_to_torch
 from ..core import engine_torch, listing, pipeline
 from ..core.engine_np import Stats
 from ..core.engine_np import count_rec_C
-from ..kernels import _build
 from ..kernels import ops as kops
 from ..obs import profile as obs_profile
 from ..obs import trace
@@ -305,17 +309,15 @@ class _Lanes:
 
     def _build_once(self, batch: pipeline.TileBatch) -> None:
         """Build (or load) the CUDA kernel library before the first CUDA
-        launch, billing the seconds to ``Stats.kernel_compile_s`` and to
-        the first batch's kernel signature; a failed build raises here,
-        out of ``submit``."""
+        launch, billing the seconds to the first batch's kernel signature
+        and, through ``kops.consume_compile_s`` at :meth:`finish`, to
+        ``Stats.kernel_compile_s``; a failed build raises here, out of
+        ``submit``."""
         if self._built or all(ln.stream is None for ln in self.lanes):
             return
         sig = self._sig(batch.B, batch.T)
-        t0 = time.perf_counter()
         with trace.span("kernel/compile", sig=sig):
-            _build.lib()
-        dt = time.perf_counter() - t0
-        self.stats.kernel_compile_s += dt
+            dt = kops.build_library()
         obs_profile.note_kernel(sig, compile_s=dt)
         self._built = True
 
@@ -410,12 +412,14 @@ class Dispatcher(_Lanes):
         max_inflight: int = 2,
         stats: Optional[Stats] = None,
         stage_times: Optional[dict] = None,
+        backend: Optional[str] = None,
     ):
         super().__init__(l, resolve_devices(devices if mesh is None
                                             else mesh),
                          stats if stats is not None else Stats())
         self.et = et
         self.method = method
+        self.backend = backend
         self.mesh = mesh
         self._n_shards = self.n_devices if mesh is not None else 1
         self.async_staging = async_staging
@@ -434,7 +438,8 @@ class Dispatcher(_Lanes):
             tA, tc = batch_to_torch(A, cand, lane.device)
             inject.fire("kernel.launch")
             out = engine_torch.count_packed(tA, tc, self.l,
-                                            method=self.method, et=self.et)
+                                            method=self.method, et=self.et,
+                                            backend=self.backend)
             return lane.to_host(out)
 
     def _host_partials(self, batch: pipeline.TileBatch):
@@ -591,6 +596,8 @@ class Dispatcher(_Lanes):
         """Drain all in-flight work; returns the accumulated exact count
         (routed batches are not part of it)."""
         self._drain()
+        self.stats.kernel_compile_s += kops.consume_compile_s()
+        kops.drain_tune_events(self.stats)
         return self.total
 
 
@@ -656,10 +663,12 @@ class ListDispatcher(_Lanes):
         stats: Optional[Stats] = None,
         capacity=None,
         max_capacity: Optional[int] = None,
+        cap_policy: str = "pow2",
         et_t: int = 3,
         async_staging: bool = True,
         max_inflight: int = 2,
         stage_times: Optional[dict] = None,
+        backend: Optional[str] = None,
     ):
         if isinstance(capacity, str) and capacity not in ("sized",
                                                           "speculative"):
@@ -671,6 +680,8 @@ class ListDispatcher(_Lanes):
         self.capacity = capacity
         self.max_capacity = (listing.MAX_CAPACITY if max_capacity is None
                              else int(max_capacity))
+        self.cap_policy = cap_policy  # emit-buffer rounding (tuned knob)
+        self.backend = backend
         # speculative mode: pow2 capacity ratchet per tile width.  Written
         # by the decode worker (true counts), read by submit; a stale read
         # is harmless -- it only costs one device retry.
@@ -710,7 +721,8 @@ class ListDispatcher(_Lanes):
         copy of its counts back; returns (event, (host counts,))."""
         inject.fire("kernel.launch")
         with lane.context():
-            return lane.to_host((kops.count_tiles(A, cand, self.l),))
+            return lane.to_host((kops.count_tiles(A, cand, self.l,
+                                                  backend=self.backend),))
 
     def _list(self, lane: Lane, A: torch.Tensor, cand: torch.Tensor,
               cap: int):
@@ -721,7 +733,8 @@ class ListDispatcher(_Lanes):
         stream."""
         inject.fire("kernel.launch")
         with lane.context():
-            return lane.to_host(kops.list_tiles(A, cand, self.l, cap))
+            return lane.to_host(kops.list_tiles(A, cand, self.l, cap,
+                                                backend=self.backend))
 
     def _host_list(self, batch: pipeline.TileBatch):
         """A CPU lane's host rung: (no event, the batch's triple from
@@ -833,7 +846,8 @@ class ListDispatcher(_Lanes):
                 counts = np.asarray(hard)
             self._add_time("device", time.perf_counter() - t0)
             self._pending.popleft()
-            cap = listing.capacity_for(counts, self.max_capacity)
+            cap = listing.capacity_for(counts, self.max_capacity,
+                                       policy=self.cap_policy)
             out = self._launch_list(batch, self.lanes[d], acand, cap)
             self._inflight.append((d, batch, acand, out, route))
             block = False  # only the head is ever forced
@@ -865,7 +879,8 @@ class ListDispatcher(_Lanes):
             # listed once more on the device at the exact rounded size --
             # identical triples, never a host relist unless the true count
             # exceeds max_capacity (as in every mode)
-            true_cap = listing.capacity_for(cnt, self.max_capacity)
+            true_cap = listing.capacity_for(cnt, self.max_capacity,
+                                            policy=self.cap_policy)
             self._cap_ratchet[batch.T] = max(
                 self._cap_ratchet.get(batch.T, 1), true_cap
             )
@@ -961,6 +976,8 @@ class ListDispatcher(_Lanes):
         (0 when running sink-less).  Shuts down the decode worker."""
         self._drain()
         self._decode_ex.shutdown(wait=True)
+        self.stats.kernel_compile_s += kops.consume_compile_s()
+        kops.drain_tune_events(self.stats)
         return 0 if self.sink is None else self.sink.accepted
 
     def close(self) -> None:
@@ -997,6 +1014,7 @@ def dispatch_scheduled(
     max_inflight: int = 2,
     stats: Optional[Stats] = None,
     stage_times: Optional[dict] = None,
+    backend: Optional[str] = None,
 ) -> Tuple[int, dict]:
     """Offline-LPT dispatch of a materialized batch list.
 
@@ -1016,6 +1034,7 @@ def dispatch_scheduled(
         max_inflight=max_inflight,
         stats=stats,
         stage_times=stage_times,
+        backend=backend,
     )
     if mesh is not None:
         for b in batches:

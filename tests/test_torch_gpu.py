@@ -630,3 +630,150 @@ def test_list_batch_past_the_per_x_budget(cuda):
     assert ops.launch_counts()["clique_list_tiles"] == before + 2
     for x, y in zip(got, clique_list.clique_list_tiles_torch(A, cand, 4, 16)):
         assert torch.equal(x.cpu(), y)
+
+
+# ---------------------------------------------------------------------------
+# tile widths that are multiples of 32 but not powers of two (ROADMAP C3)
+# ---------------------------------------------------------------------------
+
+NEW_WIDTHS = (96, 160, 192, 224)
+_NEW_DENSITY = {96: 0.13, 160: 0.09, 192: 0.08, 224: 0.07}
+
+
+@pytest.mark.parametrize("T", NEW_WIDTHS)
+def test_kernels_match_plain_at_new_widths(cuda, T):
+    """All four kernels (and the per-branch count) at W = 3, 5, 6, 7
+    against their plain versions, exactly, each launch counted."""
+    A, cand = (x.to(cuda) for x in random_tiles(T + 5, 64, T,
+                                                _NEW_DENSITY[T]))
+    before = ops.launch_counts()
+    rng = np.random.default_rng(T)
+    a = rng.integers(0, T - 1, 64)
+    pairs = torch.from_numpy(np.stack([a, a + 1 + rng.integers(0, T - 1 - a)],
+                                      1).astype(np.int32)).to(cuda)
+    _assert_triangle_and_edge_match(A, cand, pairs)
+    for l in (1, 2, 3, 4, 5, 6):
+        _assert_dfs_kernels_match(A, cand, l)
+    A, cand = (x.to(cuda) for x in cliquey_tiles(T, 37, T, s_max=22))
+    for l in (1, 2, 3, 4, 5):
+        counts = clique_count.clique_count_tiles(A, cand, l).cpu().numpy()
+        caps = sorted({1, max(1, int(counts.max()) - 1),
+                       listing.capacity_for(counts)})
+        _assert_dfs_kernels_match(A, cand, l, caps=caps)
+    after = ops.launch_counts()
+    assert after["triangle_count_tiles"] == before["triangle_count_tiles"] + 1
+    assert after["edge_candidates"] == before["edge_candidates"] + 1
+    assert after["clique_count_tiles"] > before["clique_count_tiles"]
+    assert after["clique_list_tiles"] > before["clique_list_tiles"]
+
+
+def test_row_alignment_at_new_widths_on_card(cuda):
+    """W = 3 rows load word by word, so a view 4 bytes off a 16-byte
+    boundary runs and equals the aligned tiles; W = 6 rows load by 8
+    bytes, so the same offset raises before a launch, as T > 256 does."""
+    def offset(x):
+        odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+        return odd.view(x.shape).copy_(x)
+    A, cand = (x.to(cuda) for x in random_tiles(3, 8, 96, 0.15))
+    odd = offset(A)
+    assert odd.data_ptr() % 16 == 4
+    pairs = torch.tensor([[0, 5]] * 8, dtype=torch.int32, device=cuda)
+    assert torch.equal(triangle_mm.triangle_count_tiles(odd, cand),
+                       triangle_mm.triangle_count_tiles(A, cand))
+    for l in (4, 5):
+        assert torch.equal(clique_count.clique_count_tiles(odd, cand, l),
+                           clique_count.clique_count_tiles_torch(A, cand, l))
+    for x, y in zip(clique_list.clique_list_tiles(odd, cand, 4, 64),
+                    clique_list.clique_list_tiles_torch(A, cand, 4, 64)):
+        assert torch.equal(x, y)
+    for x, y in zip(intersect.edge_candidates(odd, pairs),
+                    intersect.edge_candidates_torch(A, pairs)):
+        assert torch.equal(x, y)
+    A6, c6 = (x.to(cuda) for x in random_tiles(6, 8, 192, 0.08))
+    odd6 = offset(A6)
+    before = ops.launch_counts()
+    for call in (lambda: triangle_mm.triangle_count_tiles(odd6, c6),
+                 lambda: clique_count.clique_count_tiles(odd6, c6, 4),
+                 lambda: clique_count.clique_count_items(odd6, c6, 4),
+                 lambda: clique_list.clique_list_tiles(odd6, c6, 4, 8),
+                 lambda: intersect.edge_candidates(odd6, pairs)):
+        with pytest.raises(ValueError, match="8-byte boundary"):
+            call()
+    A9 = torch.zeros((2, 288, 9), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="T <= 256"):
+        clique_count.clique_count_tiles(A9, A9[:, 0].contiguous(), 4)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("k", [5, 6, 7])
+def test_new_width_ladders_on_card_match_cpu(cuda, k):
+    """Counting and listing with ladders that pack every tile at a new
+    width (the tiles of rmat_graph(10, 16) are at most 27 wide), and with
+    the mult32 ladder, inline and through the dispatchers (whose staged
+    batches keep W = 3 tiles aligned): the CPU's count (the card's pow2
+    count at k = 7, held against the CPU elsewhere) and the CPU's rows."""
+    from repro_torch.core import pipeline
+    from repro_torch.tune import search
+    g = graphs.rmat_graph(10, edge_factor=16, seed=7)
+    want = engine_torch.count(g, k, device="cpu" if k < 7 else cuda).count
+    cpu_rows = None
+    if k < 7:
+        sink = listing.ArraySink(k)
+        listing.stream_cliques(g, k, sink, device="cpu")
+        cpu_rows = np.sort(sink.result().view(
+            [("", np.int64)] * k).ravel())
+    ops.reset_counts()
+    for bins in ((96,), (160, 256), (192,), (224,), search.bins_for("mult32")):
+        widths = {b.T for b in pipeline.stream_batches(g, k, bins=bins)
+                  if isinstance(b, pipeline.TileBatch)}
+        assert widths and (widths <= set(NEW_WIDTHS)
+                           or len(bins) > 2), (bins, widths)
+        assert engine_torch.count(g, k, bins=bins).count == want, bins
+        for lanes in (["cuda:0"], ["cuda:0"] * 2):
+            assert engine_torch.count(g, k, bins=bins,
+                                      devices=lanes).count == want
+        if cpu_rows is None or bins not in ((96,), (224,)):
+            continue
+        for kw in ({}, {"devices": ["cuda:0"] * 2},
+                   {"devices": ["cuda:0"], "capacity": "speculative"}
+                   )[:3 if bins == (96,) else 2]:
+            sink = listing.ArraySink(k)
+            listing.stream_cliques(g, k, sink, bins=bins, **kw)
+            got = np.sort(sink.result().view([("", np.int64)] * k).ravel())
+            assert np.array_equal(got, cpu_rows), (bins, kw)
+    assert sum(ops.plain_counts().values()) == 0
+
+
+def test_backend_registry_on_card(cuda, tmp_path, monkeypatch):
+    """``torch`` and ``ref`` raise on a CUDA tensor; ``autotune`` reports
+    its winner and runs the kernel, even when the record says the plain
+    version is faster."""
+    from repro_torch import tune
+    from repro_torch.tune import search
+    monkeypatch.delenv(ops.BACKEND_ENV, raising=False)
+    A, cand = (x.to(cuda) for x in random_tiles(9, 16, 32, 0.35))
+    for backend in ("torch", "ref"):
+        with pytest.raises(ValueError):
+            ops.count_tiles(A, cand, 4, backend=backend)
+        with pytest.raises(ValueError):
+            ops.list_tiles(A, cand, 3, 16, backend=backend)
+    tune.configure(str(tmp_path / "tc"), build_cache=False)
+    tune.clear_memory()
+    ops.clear_autotune_cache()
+    try:
+        tune.put(tune.TuningRecord(
+            "backend", tune.device_kind(), tune.torch_version(), "count", 4,
+            T=32, W=1, data={"winner": "torch"}))
+        ops.reset_counts()
+        got = ops.count_tiles(A, cand, 4, backend="autotune")
+        assert ops.launch_counts()["clique_count_tiles"] == 1
+        assert ops.plain_counts()["clique_count_tiles"] == 0
+        assert torch.equal(got, clique_count.clique_count_tiles_torch(
+            A, cand, 4))
+        winner, times = search.microbench_backend("count", 4, 32)
+        assert set(times) == {"cuda", "torch"} and winner in times
+    finally:
+        tune.configure(None)
+        tune.clear_memory()
+        tune.consume_events()
+        ops.clear_autotune_cache()

@@ -441,9 +441,8 @@ def _span_names(tracer_mod, query):
 
 #: spans of the reference that a CPU run of the port does not have: the
 #: reference jit-compiles its device step on the CPU too, where the port
-#: builds its kernel library only for a CUDA lane (kernel/compile), and
-#: the autotuner's geometry lookup waits for the port's tune slice
-_REFERENCE_ONLY = {"kernel/compile", "tune/resolve"}
+#: builds its kernel library only for a CUDA lane (kernel/compile)
+_REFERENCE_ONLY = {"kernel/compile"}
 
 
 @pytest.mark.parametrize("mode", ["count", "list", "list-inline"])
