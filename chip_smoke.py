@@ -15,8 +15,8 @@ kernel counters set to 0 just before it and read just after:
 * listing -- ``repro_torch.core.ebbkc.list_cliques``' engine,
   ``listing.stream_cliques``, into a sink that hashes the rows -- on the
   same generator at scale 12 (n = 4,096, m = 48,484) for k = 5 (cold and
-  warm plan; l = 3 triangle emit) and k = 6 (l = 4 DFS emit, with
-  overflowed tiles relisted on the host);
+  warm plan; l = 3 triangle emit) and at scale 11 (n = 2,048) for k = 6
+  (l = 4 DFS emit, with overflowed tiles relisted on the host);
 * edge-branch candidates -- ``repro_torch.kernels.ops.edge_candidates``
   -- on every packed batch of the k = 5 listing, one edge of each tile;
 * multi-lane dispatch (``[dispatch]``, ``repro_torch.runtime.dispatch``)
@@ -49,19 +49,39 @@ the dispatcher, its default) and listing, and finally:
 * tile widths (``[widths]``): the ``-Xptxas -v`` report of the
   instantiations at W = 3, 5, 6, 7 (no spill in a full block), the four
   kernels at T = 96, 160, 192 and 224 on seeded tiles and on the
-  main-path batches of a ``mult32`` stream, each against its plain
-  version and timed beside the same tiles packed at the next power of
-  two, and the k = 7 count on the scale-15 graph under the ``mult32``
-  ladder;
+  main-path batches of a ``mult32`` stream (counting at k = 5 and 7 on
+  the scale-15 graph, listing at k = 6 on the scale-12 graph), each
+  against its plain version and timed beside the same tiles packed at
+  the next power of two, and the k = 7 count of the scale-15 graph under
+  the ``mult32`` ladder on the warm plan;
 * plan persistence (``[persist]``): ``save_plan`` of the scale-15 plan,
   a fresh launcher process that loads it with ``--plan-cache`` and counts
   k = 5, and a corrupt scale-12 store (``plan.load=1.0:corrupt``)
   quarantined and rebuilt;
 * the tuner (``[tune]``): ``tune_geometry`` for counting (l = 5) and
-  listing (l = 3) persisted to a tune cache, a fresh launcher process
-  that counts k = 7 with ``--tune-cache`` on the tuned geometry without a
+  listing (l = 3) persisted to a tune cache (the library of the build
+  copied into it), a fresh launcher process that counts k = 7 on the
+  scale-12 graph with ``--tune-cache`` on the tuned geometry without a
   search, and the ``autotune`` backend's kernel-vs-plain measurement,
-  whose winner the card reports and does not obey.
+  whose winner the card reports and does not obey;
+* tiles wider than 256 (``[wide]``): the ``-Xptxas -v`` report of the
+  kernels' wide path, the four kernels at T = 288, 512, 1056 and 2048
+  against their plain versions and timed, and a count and a listing
+  through bins (32, ..., 256, 512) on a complete multipartite graph whose
+  widest tiles hold 258 vertices, against closed forms;
+* dynamic graphs (``[delta]``): a ``PlanIndex`` on the scale-12 graph on
+  the card through three repair batches and one past the churn
+  threshold, each checked against a fresh plan, with its k = 5 delta
+  exact by three counts and by its rows and its time split by the trace,
+  the composed delta, and one 0.2 % batch on the scale-15 graph with its
+  net count against the pinned one;
+* the serving tier (``[serve]``): a ``CliqueService`` on the card with
+  both RMAT graphs registered, a burst of 8 client threads (counts and
+  lists, filtered and truncated) on one lane, its scale-12 requests on
+  two lanes (under the profiler), an update and a delta read, a metrics
+  scrape, the scale-12 requests under the chaos plan (each exact or
+  failed alone, then a clean request exact), and the same requests one
+  at a time as the serial yardstick.
 
 Any failure raises and exits non-zero.
 
@@ -126,6 +146,16 @@ EXPECTED_LIST = {
     6: (146_073_205,
         "be3b0746468f912cc2ce3e21aa5c8320e8aede9ffb9bc3326941149689d5c790"),
 }
+# 7-cliques of rmat_graph(12, 16, seed=7), from the JAX reference on a
+# CPU: engine_jax.count(rmat_graph(12, 16, seed=7), 7, backend="lax")
+EXPECTED_12_K7 = 630_333_573
+# The k = 6 listing runs on the same generator at scale 11 (n = 2,048),
+# rows and digest from the JAX reference on a CPU as above (80 s there;
+# 260 of its tiles overflow and are relisted on the host)
+LIST6_SCALE = 11
+EXPECTED_LIST6 = (
+    27_035_982,
+    "ef16a140f5b2d326dffc5215d3ede5310848fb95e690552493f3ee1a7ae36fb5")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit):
 # 3.35 TB/s of HBM; 67 TFLOP/s of fp32 outside the tensor cores,
@@ -323,16 +353,17 @@ def bound(nbytes: int, word_ops: int):
                                    else "operations")
 
 
-def timings(launch, reps: int) -> dict:
-    """The three times of a row: ``device_ms`` (CUDA graph, host out),
-    ``call_ms`` (one call, host dispatch in) and the run's launch floor;
-    ``ms`` is the device time."""
-    dev = device_ms(launch)
+def timings(launch, reps: int, calls: int = GRAPH_CALLS) -> dict:
+    """The three times of a row: ``device_ms`` (``calls`` calls in a CUDA
+    graph, host out), ``call_ms`` (one call, host dispatch in) and the
+    run's launch floor; ``ms`` is the device time."""
+    dev = device_ms(launch, calls)
     return {"ms": dev, "device_ms": dev, "call_ms": call_ms(launch, reps),
             "launch_floor_ms": launch_floor_ms()}
 
 
-def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
+def kernel_cases(rows, errs, A, cand, l, tag, reps=20,
+                 calls=GRAPH_CALLS):
     """Kernel vs plain on one input; record timings and the bound.
 
     The kernel's times are those of the bare C entry point (no wrapper, so
@@ -346,7 +377,10 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
     B, T, W = check_tiles(A, cand)
     so = _build.lib()
     out = torch.empty(B + 2, dtype=torch.int32, device=A.device)
-    items = clique_count.item_list(B, T, A.device)
+    # the item list, and at T > 256 the wide path's scratch (the C entry
+    # point's scratch arguments), as the wrapper allocates them
+    items, scratch_args, _scratch = clique_count.dfs_scratch(B, T, l,
+                                                             A.device)
     nbytes = A.numel() * 4 + cand.numel() * 4 + B * 4
     results = []
     for kernel in (("triangle", "dfs") if l == 3 else ("dfs",)):
@@ -367,11 +401,11 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
             lib_fn, lib_counts = bmm_yardstick(A, cand)
             if not torch.equal(lib_counts, want):
                 fail(f"bmm yardstick disagrees at T={T} ({tag})")
-            lib_ms = device_ms(lib_fn)
+            lib_ms = device_ms(lib_fn, calls)
             # the wrapper as the engine calls it: its launch and any torch
             # op that follows it
             extra["wrapper_device_ms"] = device_ms(
-                lambda: triangle_mm.triangle_count_tiles(A, cand))
+                lambda: triangle_mm.triangle_count_tiles(A, cand), calls)
         else:
             got = clique_count.clique_count_tiles(A, cand, l)
             work = {}
@@ -385,8 +419,8 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
                 out.zero_()
                 check_rc(so.clique_count_tiles_launch(
                     A.data_ptr(), cand.data_ptr(), out.data_ptr(),
-                    items.data_ptr(), out[B:].data_ptr(), B, T, l,
-                    stream_ptr()), "clique_count_tiles")
+                    items.data_ptr(), out[B:].data_ptr(), *scratch_args, B, T,
+                    l, stream_ptr()), "clique_count_tiles")
             # 2 word ops (AND, popcount) per word of every DFS step, and
             # 4 (two ANDs, popcount, add) per word of every closing edge
             word_ops = 2 * W * int(work["steps"].sum()) + \
@@ -399,10 +433,10 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
         errs[kernel] = max(errs.get(kernel, 0),
                            int((got - want).abs().max()) if B else 0)
         if kernel == "dfs":
-            item_case(rows, errs, A, cand, l, tag, want, reps)
+            item_case(rows, errs, A, cand, l, tag, want, reps, calls)
         # times are taken with the batch resident in L2, as the engine finds
         # it right after its H2D copy
-        t = timings(launch, reps)
+        t = timings(launch, reps, calls)
         bound_ms, bound_by = bound(nbytes, word_ops)
         row = {"kernel": kernel, "case": tag, "T": T, "l": l, "B": B, **t,
                "plain_ms": plain_ms, "bytes": nbytes,
@@ -421,7 +455,8 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20):
     return results
 
 
-def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20):
+def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20,
+              calls=GRAPH_CALLS):
     """The count per first-level branch (the kernels' branch and item
     passes, summed per (tile, v)) vs its plain version: the (B, T) counts
     must be ``torch.equal``, and their row sums mod 2**32 the tiles'
@@ -444,7 +479,8 @@ def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20):
                         int((got - want).abs().max()) if B else 0)
     so = _build.lib()
     per_v = torch.empty((B, T), dtype=torch.int64, device=A.device)
-    items = clique_count.item_list(B, T, A.device)
+    items, scratch_args, _scratch = clique_count.dfs_scratch(B, T, l,
+                                                             A.device)
     counters = torch.empty(2, dtype=torch.int32, device=A.device)
 
     def launch():
@@ -452,8 +488,9 @@ def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20):
         counters.zero_()
         check_rc(so.clique_count_items_launch(
             A.data_ptr(), cand.data_ptr(), per_v.data_ptr(), items.data_ptr(),
-            counters.data_ptr(), B, T, l, stream_ptr()), "clique_count_items")
-    t = timings(launch, reps)
+            counters.data_ptr(), *scratch_args, B, T, l, stream_ptr()),
+            "clique_count_items")
+    t = timings(launch, reps, calls)
     kept = int((want > 0).sum())
     heaviest = want.max(-1).values
     row = {"kernel": "items", "case": tag, "T": T, "l": l, "B": B, **t,
@@ -468,7 +505,8 @@ def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20):
     return row
 
 
-def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
+def list_case(rows, errs, A, cand, l, cap, tag, reps=0,
+              calls=GRAPH_CALLS):
     """List kernel vs plain on one input at capacity ``cap``: buffer (zero
     padding included), count and overflow must be ``torch.equal``.  With
     ``reps`` it also times the bare C entry point (no launch counted), the
@@ -492,13 +530,14 @@ def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
     count = want[1]
     if not reps:
         return count
-    item_case(rows, errs, A, cand, l, tag, count, reps)
+    item_case(rows, errs, A, cand, l, tag, count, reps, calls)
     so = _build.lib()
     buf = torch.empty((B, cap, l), dtype=torch.int32, device=A.device)
     cnt = torch.empty(B, dtype=torch.int32, device=A.device)
     ovf = torch.empty(B, dtype=torch.int32, device=A.device)
     per_x = torch.empty((B, T, T), dtype=torch.int64, device=A.device)
-    items = clique_count.item_list(B, T, A.device)
+    items, scratch_args, _scratch = clique_count.dfs_scratch(B, T, l,
+                                                             A.device)
     counters = torch.empty(3, dtype=torch.int32, device=A.device)
 
     def launch():
@@ -509,11 +548,11 @@ def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
         check_rc(so.clique_list_tiles_launch(
             A.data_ptr(), cand.data_ptr(), buf.data_ptr(), cnt.data_ptr(),
             ovf.data_ptr(), per_x.data_ptr(), items.data_ptr(),
-            counters.data_ptr(), B, T, l, cap, stream_ptr()),
+            counters.data_ptr(), *scratch_args, B, T, l, cap, stream_ptr()),
             "clique_list_tiles")
     # with the batch resident in L2, as the engine finds it after its H2D
-    t = timings(launch, reps)
-    zero_ms = device_ms(buf.zero_)
+    t = timings(launch, reps, calls)
+    zero_ms = device_ms(buf.zero_, calls)
     written = int(torch.clamp(count, max=cap).sum())
     nbytes = A.numel() * 4 + cand.numel() * 4 + written * l * 4 + B * 8
     # 2 word ops (AND, popcount) per word of every DFS step; 3 (two ANDs,
@@ -540,7 +579,7 @@ def list_case(rows, errs, A, cand, l, cap, tag, reps=0):
     return row
 
 
-def edge_case(rows, errs, A, pairs, tag, reps=20):
+def edge_case(rows, errs, A, pairs, tag, reps=20, calls=GRAPH_CALLS):
     """edge_candidates kernel vs plain on one input, timed."""
     import torch
     from repro_torch.kernels import _build, intersect
@@ -562,7 +601,7 @@ def edge_case(rows, errs, A, pairs, tag, reps=20):
         check_rc(so.edge_candidates_launch(
             A.data_ptr(), pairs.data_ptr(), cand.data_ptr(), n.data_ptr(), B,
             T, stream_ptr()), "edge_candidates")
-    t = timings(launch, reps)
+    t = timings(launch, reps, calls)
     # the function reads two rows and the pair of each tile and writes W
     # words and a count; 3 word ops (AND, AND, popcount) a word
     nbytes = B * (2 * W * 4 + 8 + W * 4 + 4)
@@ -604,7 +643,8 @@ def ptxas_report(text: str):
             sym = m.group(1)
             k = re.search(r"(branch_kernel|item_kernel|list_emit_kernel|"
                           r"list_scan_kernel|tri_warp_rows|tri_block_rows|"
-                          r"edge_candidates_kernel)"
+                          r"edge_candidates_kernel|branch_wide|item_wide|"
+                          r"list_emit_wide|tri_wide|edge_candidates_wide)"
                           r"(I.*?EE)?", sym)
             name = None
             if k:
@@ -642,6 +682,15 @@ def skewed_batch(A, cand, counts, B: int = 256):
     c2 = torch.zeros((B, cand.shape[1]), dtype=cand.dtype, device=cand.device)
     c2[17] = cand[heavy]
     return A2, c2
+
+
+def warm(graph, graph_plan) -> None:
+    """Publish ``graph_plan`` into the keyed plan cache under ``graph``'s
+    key, as a query that built it would: later phases put other plans in
+    the cache's few slots."""
+    from repro_torch.core import pipeline
+    pipeline._plan_cache_insert(pipeline.plan_key(graph, "hybrid"),
+                                graph_plan)
 
 
 def batches_per_bin(plan, k: int):
@@ -707,13 +756,24 @@ def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
             fail(f"dispatch {name}: a lane took no tile: "
                  f"{stats.device_tiles}")
 
-    def count(name, graph, graph_plan, k, lanes, inline_s):
+    def count(name, graph, graph_plan, k, lanes, inline_s, profiled=False):
+        """One dispatched count; with ``profiled`` it runs under the
+        profiler, which also gives the device's busy share."""
         stage = {}
         ops.reset_counts()
-        t0 = time.perf_counter()
-        res = ebbkc.count(graph, k, plan=graph_plan, engine_kwargs=dict(
-            devices=lanes, stage_times=stage))
-        wall = time.perf_counter() - t0
+
+        def query():
+            return ebbkc.count(graph, k, plan=graph_plan, engine_kwargs=dict(
+                devices=lanes, stage_times=stage))
+        if profiled:
+            runs["device_busy"] = device_busy(name, query)
+            res = runs["device_busy"].pop("result")
+            runs["device_busy"]["result"] = res.count
+            wall = runs["device_busy"]["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            res = query()
+            wall = time.perf_counter() - t0
         record(name, [kernel_of(k)], wall, res.stats, stage, inline_s,
                count=res.count)
         return res.count
@@ -721,9 +781,11 @@ def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
     def kernel_of(k):
         return "triangle_count_tiles" if k == 5 else "clique_count_tiles"
 
+    # the two-lane query runs once, under the profiler, which also gives
+    # the device's busy share; its wall carries the profiler's overhead
     for lanes, tag in ((one, "1 lane"), (two, "2 lanes")):
         got = count(f"count k=7 rmat15 {tag}", g, plan, 7, lanes,
-                    main_runs[7]["wall_s"])
+                    main_runs[7]["wall_s"], profiled=lanes is two)
         if got != EXPECTED[7]:
             fail(f"dispatch k=7 on {tag} counted {got}, expected "
                  f"{EXPECTED[7]}")
@@ -792,17 +854,10 @@ def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
                  f"rows, sha256 {digest.hexdigest()}; expected "
                  f"{EXPECTED_LIST[5]}")
     runs["lane_concurrency"] = lane_concurrency(plan)
-    runs["device_busy"] = device_busy(
-        "count k=7 rmat15 2 lanes",
-        lambda: ebbkc.count(g, 7, plan=plan,
-                            engine_kwargs=dict(devices=two)).count)
-    if runs["device_busy"]["result"] != EXPECTED[7]:
-        fail("dispatch k=7 under the profiler counted "
-             f"{runs['device_busy']['result']}, expected {EXPECTED[7]}")
     return runs
 
 
-def device_busy(name: str, query) -> dict:
+def device_busy(name: str, query, tag: str = "[dispatch]") -> dict:
     """The device's busy share of one dispatched query: the query runs
     once more under ``torch.profiler`` (CUDA activity only), and the union
     of its device intervals (kernels, copies, fills, on every stream) is
@@ -835,15 +890,15 @@ def device_busy(name: str, query) -> dict:
                count_kernel_s=sum(dfs) / 1e6)
     if spans:
         share = out["busy_share"]
-        log(f"[dispatch] device busy, {name} under the profiler: wall "
+        log(f"{tag} device busy, {name} under the profiler: wall "
             f"{wall:.2f} s, {len(spans)} device events, "
             f"busy {out['busy_s']:.3f} s ({100 * share:.2f}% of wall; idle "
             f"{100 - 100 * share:.2f}%), summed {out['summed_s']:.3f} s "
             f"({out['summed_s'] / out['busy_s']:.2f}x the busy time); DFS "
             f"count kernel {len(dfs)} events, {out['count_kernel_s']:.4f} s")
     else:
-        log("[dispatch] device busy share not measured: the profiler saw "
-            "no device events")
+        log(f"{tag} device busy share not measured: the profiler saw no "
+            "device events")
     return out
 
 
@@ -1008,7 +1063,7 @@ def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
                           events=len(doc["traceEvents"]),
                           stage_durations=stages, relist_spans=relists,
                           relist_s=stages.get("overflow/relist", 0.0))
-    log(f"[obs] list k=6 rmat12 inline ([list main], traced): wall "
+    log(f"[obs] list k=6 rmat11 inline ([list main], traced): wall "
         f"{wall:.2f} s, overflow/relist {relists} spans, "
         f"{out['list_k6']['relist_s']:.2f} s "
         f"({100 * out['list_k6']['relist_s'] / wall:.1f}% of wall), decode "
@@ -1037,7 +1092,7 @@ def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
     out["metrics"] = dict(series=len(values), bytes=len(text))
     log(f"[obs] metrics: scraped {srv.address}/metrics once: {len(values)} "
         f"series, {len(text)} bytes")
-    if values.get("repro_engine_emitted_cliques_total") != EXPECTED_LIST[6][0]:
+    if values.get("repro_engine_emitted_cliques_total") != EXPECTED_LIST6[0]:
         fail("obs: the scrape did not parse to the listing's row count")
 
     # a profiler capture of the k = 5 count on rmat12 (triangle kernel)
@@ -1310,8 +1365,8 @@ def widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
     ptxas report, seeded tiles, and the main-path batches of a ``mult32``
     stream (counting on rmat15, listing on rmat12) -- each against its
     plain version and timed beside the same tiles at the next power of
-    two; then the k = 7 count on rmat15 under the mult32 ladder, exact,
-    with its wall beside the pow2 wall of ``[main]``."""
+    two; then the k = 7 count on rmat15 under the mult32 ladder on the
+    warm plan, exact, with its wall beside the pow2 wall of ``[main]``."""
     import numpy as np
     import torch
     from repro_torch.core import ebbkc
@@ -1334,8 +1389,8 @@ def widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
             pairs=pairs)
     for k, l in ((5, 3), (7, 5)):
         for T in NEW_T:
-            for which, A, cand, live in main_path_batches(plan, k, T,
-                                                          bins=MULT32):
+            for which, A, cand, _ in main_path_batches(plan, k, T,
+                                                       bins=MULT32):
                 if which != "sample":
                     continue
                 tag = f"mult32 k={k} T={T}"
@@ -1349,36 +1404,29 @@ def widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
                 tag = f"mult32 list k=6 T={T}"
                 out["times"][tag] = widths_case(rows, errs, A, cand, tag,
                                                 ls=(), list_l=4)
-    # pow2, mult32, pow2 in turns on the warm plan: the host's spread
-    # between queries of one call is what the two ladders are held within
-    walls = {"pow2": [], "mult32": []}
-    for ladder in ("pow2", "mult32", "pow2"):
-        bins = MULT32 if ladder == "mult32" else BINS
-        ops.reset_counts()
-        t0 = time.perf_counter()
-        res = ebbkc.count(g, 7, engine_kwargs={"bins": bins})
-        wall = time.perf_counter() - t0
-        st = res.stats
-        queries.append((f"[widths] count k=7 {ladder}", st))
-        launches, plain = ops.launch_counts(), ops.plain_counts()
-        walls[ladder].append(wall)
-        log(f"[widths] k=7 rmat15 under {ladder}: count={res.count} wall="
-            f"{wall:.2f} s frontend={st.frontend_s:.2f} worker-s "
-            f"({st.pack_workers} workers, queue_occ="
-            f"{st.pack_queue_occupancy:.2f}) tiles={res.tiles} launches "
-            f"{launches}")
-        if res.count != EXPECTED[7]:
-            fail(f"k=7 under {ladder} counted {res.count}, expected "
-                 f"{EXPECTED[7]}")
-        if not launches["clique_count_tiles"] or sum(plain.values()):
-            fail(f"k=7 under {ladder}: launches {launches}, plain calls "
-                 f"{plain}")
-    out["k7"] = dict(count=res.count, walls_s=walls,
+    # one mult32 query on the warm plan (the pow2 wall is [main]'s k = 7)
+    warm(g, plan)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = ebbkc.count(g, 7, engine_kwargs={"bins": MULT32})
+    wall = time.perf_counter() - t0
+    st = res.stats
+    queries.append(("[widths] count k=7 mult32", st))
+    launches, plain = ops.launch_counts(), ops.plain_counts()
+    log(f"[widths] k=7 rmat15 under mult32: count={res.count} wall="
+        f"{wall:.2f} s (pow2 in [main], with stage timing: "
+        f"{main_runs[7]['wall_s']:.2f} s) frontend={st.frontend_s:.2f} "
+        f"worker-s ({st.pack_workers} workers, queue_occ="
+        f"{st.pack_queue_occupancy:.2f}) tiles={res.tiles} plan cache hit "
+        f"{st.plan_cache_hit} launches {launches}")
+    if res.count != EXPECTED[7]:
+        fail(f"k=7 under mult32 counted {res.count}, expected {EXPECTED[7]}")
+    if not (launches["clique_count_tiles"] and st.plan_cache_hit) \
+            or sum(plain.values()):
+        fail(f"k=7 under mult32: launches {launches}, plain calls {plain}, "
+             f"plan cache hit {st.plan_cache_hit}")
+    out["k7"] = dict(count=res.count, mult32_wall_s=wall,
                      main_pow2_wall_s=main_runs[7]["wall_s"])
-    log(f"[widths] k=7 rmat15 walls: mult32 {walls['mult32'][0]:.2f} s, "
-        f"pow2 before and after {walls['pow2'][0]:.2f} / "
-        f"{walls['pow2'][1]:.2f} s ([main], with stage timing: "
-        f"{main_runs[7]['wall_s']:.2f} s)")
     return out
 
 
@@ -1416,12 +1464,14 @@ def dir_bytes(path) -> int:
 
 
 def persist_phase(g, plan, lg, lplan, main_runs) -> dict:
-    """``[persist]``: ``save_plan`` of the warm rmat15 plan (seconds,
-    bytes); a fresh process counting k = 5 on rmat15 with ``--plan-cache``
-    loads it from disk (exact, ``warm``); and on rmat12 a store read under
+    """``[persist]``: ``save_plan`` of the warm rmat15 plan and
+    ``load_plan`` of its store (seconds, bytes, the tables equal); a fresh
+    process counting k = 5 on rmat12 with ``--plan-cache`` loads that
+    graph's store from disk (exact, ``warm``); and a store read under
     ``plan.load=1.0:corrupt`` (through REPRO_TORCH_FAULT_PLAN) is
     quarantined and rebuilt, and the count stays exact."""
     import shutil
+    import numpy as np
     from repro_torch.core import pipeline
     out = {}
     base = ROOT / "build" / "smoke_plans"
@@ -1431,25 +1481,36 @@ def persist_phase(g, plan, lg, lplan, main_runs) -> dict:
     pipeline.save_plan(plan, str(base / key))
     out["save_s"] = time.perf_counter() - t0
     out["bytes"] = dir_bytes(base / key)
-    log(f"[persist] save_plan rmat15: {out['save_s']:.2f} s, "
-        f"{out['bytes']} B on disk")
-    text, wall = run_cli(["--graph", f"rmat:{RMAT_SCALE},{RMAT_EDGE_FACTOR}",
+    t0 = time.perf_counter()
+    loaded = pipeline.load_plan(str(base / key))
+    out["load_s"] = time.perf_counter() - t0
+    out["build_s_this_run"] = main_runs[5]["plan_build_s"]
+    a, b = plan.table("hybrid"), loaded.table("hybrid")
+    same = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "edge_id", "anchors", "offsets", "verts", "thresh", "ekeys",
+        "erank"))
+    log(f"[persist] rmat15: save_plan {out['save_s']:.2f} s, "
+        f"{out['bytes']} B on disk; load_plan {out['load_s']:.2f} s against "
+        f"a {out['build_s_this_run']:.2f} s build in [main] (this run); "
+        f"tables equal: {same}")
+    if not same:
+        fail("the loaded rmat15 plan differs from the saved one")
+    lkey = pipeline.plan_key(lg, "hybrid")
+    pipeline.save_plan(lplan, str(base / lkey))
+    text, wall = run_cli(["--graph", f"rmat:{LIST_SCALE},{RMAT_EDGE_FACTOR}",
                           "--k", "5", "--plan-cache", str(base)])
     m = re.search(r"plan cache \[.*\]: warm \(decomposition skipped\), "
                   r"([0-9.]+)s", text)
     if m is None:
-        fail("the second process did not load the rmat15 plan from disk")
-    out["load_s"] = float(m.group(1))
-    out["process_wall_s"] = wall
-    out["build_s_this_run"] = main_runs[5]["plan_build_s"]
+        fail("the second process did not load the rmat12 plan from disk")
     count = cli_count(text, 5)
-    log(f"[persist] fresh process, --plan-cache: count={count}, plan loaded "
-        f"in {out['load_s']:.2f} s against a {out['build_s_this_run']:.2f} s "
-        f"build in [main] (this run); process wall {wall:.1f} s")
-    if count != EXPECTED[5]:
-        fail(f"--plan-cache k=5 counted {count}, expected {EXPECTED[5]}")
-    lkey = pipeline.plan_key(lg, "hybrid")
-    pipeline.save_plan(lplan, str(base / lkey))
+    out["cli"] = dict(count=count, load_s=float(m.group(1)),
+                      process_wall_s=wall)
+    log(f"[persist] fresh process, --plan-cache: rmat12 count={count}, plan "
+        f"loaded in {out['cli']['load_s']:.2f} s; process wall {wall:.1f} s")
+    if count != EXPECTED_LIST[5][0]:
+        fail(f"--plan-cache k=5 counted {count}, expected "
+             f"{EXPECTED_LIST[5][0]}")
     text, _ = run_cli(["--graph", f"rmat:{LIST_SCALE},{RMAT_EDGE_FACTOR}",
                        "--k", "5", "--plan-cache", str(base)],
                       env_extra={"REPRO_TORCH_FAULT_PLAN":
@@ -1474,7 +1535,7 @@ def tune_phase(g, main_runs) -> dict:
     for counting at l = 5 and listing at l = 3, persisted to a tune cache
     (whose ``kernels/`` the library is built into); a fresh process with
     ``--tune-cache`` then resolves the count geometry from the record
-    (``tune_hit=True``, no search) and counts k = 7 on rmat15 exactly;
+    (``tune_hit=True``, no search) and counts k = 7 on rmat12 exactly;
     finally the kernel-vs-plain microbenchmark of ``autotune`` at
     (count, l = 5, T = 32), whose winner a CUDA lane reports and does not
     obey: the kernel runs, no plain version."""
@@ -1486,12 +1547,18 @@ def tune_phase(g, main_runs) -> dict:
     out = {}
     base = ROOT / "build" / "smoke_tune"
     shutil.rmtree(base, ignore_errors=True)
+    built = _build.build()  # [build]'s library, in the default directory
     tune.configure(str(base))
     try:
+        # the library [build] compiled, copied into the tune cache: the
+        # build finds it there by its source hash and compiles nothing
         t0 = time.perf_counter()
-        _build.build()
+        (base / "kernels").mkdir(parents=True, exist_ok=True)
+        shutil.copy2(built, base / "kernels" / built.name)
+        if _build.build() != base / "kernels" / built.name:
+            fail("the tune cache did not take the copied kernel library")
         out["cache_build_s"] = time.perf_counter() - t0
-        log(f"[tune] kernel library built into the tune cache "
+        log(f"[tune] kernel library copied into the tune cache "
             f"{base / 'kernels'}: {out['cache_build_s']:.2f} s")
         for mode, l in (("count", 5), ("list", 3)):
             t0 = time.perf_counter()
@@ -1511,7 +1578,7 @@ def tune_phase(g, main_runs) -> dict:
             tune.get(tune.geometry_key("count", 5))).bins))
         plans = ROOT / "build" / "smoke_plans"
         text, wall = run_cli(
-            ["--graph", f"rmat:{RMAT_SCALE},{RMAT_EDGE_FACTOR}", "--k", "7",
+            ["--graph", f"rmat:{LIST_SCALE},{RMAT_EDGE_FACTOR}", "--k", "7",
              "--tune-cache", str(base), "--plan-cache", str(plans)])
         count = cli_count(text, 7)
         ran = re.search(r"geometry: bins=([0-9,]+)", text)
@@ -1521,7 +1588,7 @@ def tune_phase(g, main_runs) -> dict:
         log(f"[tune] fresh process, --tune-cache: count={count}, bins "
             f"{out['cli']['bins']} (record: {want_bins}), tune_hit="
             f"{out['cli']['tune_hit']}, {wall:.1f} s")
-        if (count != EXPECTED[7] or not out["cli"]["tune_hit"]
+        if (count != EXPECTED_12_K7 or not out["cli"]["tune_hit"]
                 or out["cli"]["bins"] != want_bins):
             fail(f"--tune-cache k=7 did not run the tuned geometry exactly: "
                  f"{out['cli']}")
@@ -1548,6 +1615,707 @@ def tune_phase(g, main_runs) -> dict:
     finally:
         tune.configure(None)
         ops.clear_autotune_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [wide]: tiles wider than 256
+# ---------------------------------------------------------------------------
+
+#: tile widths of the kernels' wide path: W = 9, 16, 33 and 64
+WIDE_T = (288, 512, 1056, 2048)
+#: the engine ladder of [wide]: the pow2 bins and one above 256
+WIDE_BINS = (32, 64, 128, 256, 512)
+#: the [wide] engine graph: the complete multipartite graph of 88 parts of
+#: 3 vertices (n = 264, m = 34,452); its widest tiles hold 258 vertices
+TURAN_PARTS, TURAN_SIZE = 88, 3
+#: calls a CUDA graph of [wide]'s timings captures (a wide launch takes up
+#: to milliseconds, so the 100 of the other phases would take minutes)
+WIDE_GRAPH_CALLS = 10
+#: the wide kernels ptxas reports (two item-pass modes in the count
+#: source, the per-item mode in the list source)
+WIDE_KERNELS = ("branch_wide", "item_wide<0>", "item_wide<1>",
+                "item_wide<2>", "list_emit_wide", "tri_wide",
+                "edge_candidates_wide")
+
+
+def planted_tiles(seed: int, B: int, T: int, sizes, noise: float,
+                  spare: int):
+    """(B, T, W) symmetric tiles and (B, W) cands: tile b a planted clique
+    of ``sizes[b % len(sizes)]`` vertices on slots scattered over all T,
+    ``spare`` more cand vertices, and ``noise`` random edges everywhere.
+    Returns numpy words."""
+    import numpy as np
+    from repro_torch.core.bitops import pack_bits
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((B, T, T), dtype=bool)
+    cmask = np.zeros((B, T), dtype=bool)
+    for b in range(B):
+        s = min(T, sizes[b % len(sizes)])
+        members = rng.choice(T, size=min(T, s + spare), replace=False)
+        dense[b][np.ix_(members[:s], members[:s])] = True
+        dense[b] |= rng.random((T, T)) < noise
+        cmask[b, members] = True
+    dense = np.triu(dense, 1)
+    dense |= dense.transpose(0, 2, 1)
+    return pack_bits(dense), pack_bits(cmask)
+
+
+def wide_phase(rows, errs, ptxas) -> dict:
+    """``[wide]``: the ptxas report of the wide path; each of the four
+    kernels (and the per-branch count) at T = 288, 512, 1056 and 2048 on
+    planted cliques under noise, held byte for byte against its plain
+    version and timed; then one engine count and one listing through
+    bins (32, ..., 256, 512) on the Turan graph of 88 parts of 3, whose
+    widest tiles (258 vertices, 3-plexes the router leaves to the kernel)
+    pack at T = 512, against closed forms."""
+    out = {"ptxas": {}, "cases": {}, "graph_calls": WIDE_GRAPH_CALLS}
+    for name in WIDE_KERNELS:
+        info = ptxas.get(name)
+        if info is None:
+            fail(f"ptxas reported no {name}")
+        out["ptxas"][name] = info
+        log(f"[wide] ptxas {name}: {info['registers']} registers, "
+            f"{info['stack']} B stack frame, {info['spill_stores']} B spill "
+            f"stores, {info['spill_loads']} B spill loads")
+        if info["spill_stores"] or info["spill_loads"]:
+            fail(f"{name} spills: {info}")
+    for T in WIDE_T:
+        out["cases"][T] = wide_case(rows, errs, T)
+    out["engine"] = wide_engine()
+    return out
+
+
+def wide_case(rows, errs, T: int) -> dict:
+    """Every kernel at width T on 8 planted-clique tiles: held against its
+    plain version and timed (l = 3 and 5 counts, per-branch counts, the
+    l = 4 list at the exact capacity, edge candidates)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import listing
+    from repro_torch.kernels import ops
+    A, cand = (torch.from_numpy(x).view(torch.int32).cuda()
+               for x in planted_tiles(T, 8, T, (11, 9, 10, 8),
+                                      noise=2.0 / T, spare=4))
+    rng = np.random.default_rng(T)
+    a = rng.integers(0, T - 1, 8)
+    pairs = torch.from_numpy(np.stack(
+        [a, a + 1 + rng.integers(0, T - 1 - a)], 1).astype(np.int32)
+    ).cuda()
+    tag = f"wide T={T}"
+    case = {}
+    for l in (3, 5):
+        for r in kernel_cases(rows, errs, A, cand, l, tag, reps=5,
+                              calls=WIDE_GRAPH_CALLS):
+            case[f"{r['kernel']} l={l}"] = r
+    counts = ops.count_tiles(A, cand, 4).cpu().numpy()
+    if counts.min() == 0:
+        fail(f"[wide] a T={T} tile holds no 4-clique")
+    case["list l=4"] = list_case(rows, errs, A, cand, 4,
+                                 listing.capacity_for(counts), tag,
+                                 reps=5, calls=WIDE_GRAPH_CALLS)
+    case["edge"] = edge_case(rows, errs, A, pairs, tag, reps=5,
+                             calls=WIDE_GRAPH_CALLS)
+    log(f"[wide] T={T} (W={T // 32}) equal to the plain versions: "
+        + ", ".join(f"{name} device {r['device_ms']:.5f} ms call "
+                    f"{r['call_ms']:.4f} ms" for name, r in case.items()))
+    return {name: dict(device_ms=r["device_ms"], call_ms=r["call_ms"],
+                       plain_ms=r["plain_ms"], bound_ms=r.get("bound_ms"))
+            for name, r in case.items()}
+
+
+def wide_engine() -> dict:
+    """The engines through bins (32, ..., 256, 512) on the Turan graph of
+    88 parts of 3, against closed forms: the k = 5 count and the k = 3
+    rows, with the T = 512 tiles reaching the kernels."""
+    from math import comb
+    import numpy as np
+    import torch
+    from repro_torch.core import ebbkc, engine_torch, listing, pipeline
+    from repro_torch.core.graph import from_edges
+    from repro_torch.kernels import ops
+    n = TURAN_PARTS * TURAN_SIZE
+    ii, jj = np.triu_indices(n, 1)
+    keep = ii // TURAN_SIZE != jj // TURAN_SIZE
+    g = from_edges(n, np.stack([ii[keep], jj[keep]], 1))
+    t0 = time.perf_counter()
+    plan = pipeline.cached_plan(g, "hybrid")
+    plan_s = time.perf_counter() - t0
+    top = WIDE_BINS[-1]
+    table = plan.table("hybrid")
+
+    def wide_ids(k):
+        """The tiles of a k query that pack in the top bin."""
+        ids = table.select(k)
+        return ids[table.offsets[ids + 1] - table.offsets[ids]
+                   > WIDE_BINS[-2]]
+    wide = wide_ids(5)
+    live = 0
+    if wide.size:
+        batch = pipeline._pack_batch(g, table, wide, top, "hybrid")
+        A, cand = (torch.from_numpy(x).view(torch.int32).cuda()
+                   for x in (batch.A, batch.cand))
+        live = int((engine_torch.plex_stats(A, cand)[1] > 2).sum())
+    if live == 0:
+        fail(f"[wide] no tile at T={top} reaches the kernel: {wide.size} "
+             f"tiles, {live} past the 2-plex router")
+    want5 = comb(TURAN_PARTS, 5) * TURAN_SIZE ** 5
+    ops.reset_counts()
+    stage = {}
+    t0 = time.perf_counter()
+    res = ebbkc.count(g, 5, plan=plan, engine_kwargs=dict(
+        bins=WIDE_BINS, stage_times=stage))
+    count_s = time.perf_counter() - t0
+    launches, plain = ops.launch_counts(), ops.plain_counts()
+    t_top = stage.get(f"count_tiles_T{top}", 0.0)
+    log(f"[wide] Turan graph {TURAN_PARTS} x {TURAN_SIZE} (n={g.n} m={g.m}):"
+        f" plan {plan_s:.2f} s; count k=5 bins {WIDE_BINS}: {res.count} "
+        f"(closed form {want5}) in {count_s:.2f} s; {wide.size} "
+        f"tiles at T={top} ({live} past the 2-plex router), count_tiles "
+        f"span at T={top} {1e3 * t_top:.2f} ms; launches {launches}")
+    if res.count != want5 or not launches["triangle_count_tiles"] \
+            or t_top <= 0 or sum(plain.values()):
+        fail(f"[wide] count k=5: {res.count} (want {want5}), launches "
+             f"{launches}, plain {plain}, T={top} span {t_top}")
+    want3 = comb(TURAN_PARTS, 3) * TURAN_SIZE ** 3
+    list_wide = int(wide_ids(3).size)
+    sink = listing.ArraySink(3)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    lres = listing.stream_cliques(plan, 3, sink, bins=WIDE_BINS)
+    list_s = time.perf_counter() - t0
+    got = sink.result()
+    launches, plain = ops.launch_counts(), ops.plain_counts()
+    parts = got // TURAN_SIZE
+    keys = (got[:, 0] * n + got[:, 1]) * n + got[:, 2]
+    exact = (got.shape == (want3, 3)
+             and bool((parts[:, 0] != parts[:, 1]).all())
+             and bool((parts[:, 1] != parts[:, 2]).all())
+             and bool((parts[:, 0] != parts[:, 2]).all())
+             and np.unique(keys).size == want3)
+    log(f"[wide] list k=3 bins {WIDE_BINS}: {got.shape[0]} rows (closed "
+        f"form {want3}), every row three parts and no row twice: {exact}, "
+        f"{list_s:.2f} s, {list_wide} tiles at T={top}, overflowed "
+        f"{lres.stats.overflowed_tiles}; launches {launches}")
+    if not exact or not list_wide or sum(plain.values()) \
+            or launches["clique_list_tiles"] == 0:
+        fail(f"[wide] list k=3: exact={exact}, launches {launches}, plain "
+             f"{plain}, {list_wide} wide tiles")
+    return dict(n=g.n, m=g.m, plan_s=plan_s, count=res.count,
+                count_s=count_s, wide_tiles=int(wide.size),
+                wide_live=live, count_tiles_top_s=t_top,
+                list_rows=int(got.shape[0]), list_s=list_s)
+
+
+# ---------------------------------------------------------------------------
+# [delta]: dynamic graphs
+# ---------------------------------------------------------------------------
+
+#: inserted and deleted pairs of each repair batch on rmat12, and of the
+#: batch that must pass CHURN_THRESHOLD (a rebuild)
+DELTA_REPAIR_PAIRS = 10
+DELTA_REBUILD_PAIRS = 250
+#: the spans the [delta] split sums: the delta's own (each side's listing,
+#: the set differences with their sort) and the listing's inside them
+DELTA_SPANS = ("delta/list", "delta/diff", "extract", "pack", "device",
+               "decode", "overflow/relist")
+#: the k of the 0.2 % batch's net counts on rmat15 (k = 7 left out: the
+#: batch rebuilds, so each k recounts both whole graphs)
+DELTA15_KS = (5,)
+
+
+def clique_checks(rows, graph, batch_keys) -> dict:
+    """Row checks of a delta side: every row a clique of ``graph`` holding
+    a pair of ``batch_keys`` (canonical u * n + v keys), and no row twice.
+    Keys are matched by sorts and binary searches (``np.isin`` runs a slow
+    hash-based unique in newer numpy)."""
+    import numpy as np
+
+    def member(keys, ref):
+        if ref.size == 0:
+            return np.zeros(keys.shape, dtype=bool)
+        at = np.minimum(np.searchsorted(ref, keys), ref.size - 1)
+        return ref[at] == keys
+    n, k = graph.n, rows.shape[1]
+    ek, bk = np.sort(graph.edge_keys()), np.sort(batch_keys)
+    clique = np.ones(rows.shape[0], dtype=bool)
+    holds = np.zeros(rows.shape[0], dtype=bool)
+    for i in range(k):
+        for j in range(i + 1, k):
+            key = rows[:, i] * n + rows[:, j]
+            clique &= member(key, ek)
+            holds |= member(key, bk)
+    w = n ** np.arange(k - 1, -1, -1, dtype=np.int64)
+    keys = np.sort(rows @ w)
+    return dict(cliques=bool(clique.all()), hold_batch_edge=bool(holds.all()),
+                distinct=not bool((keys[1:] == keys[:-1]).any()))
+
+
+def delta_phase(g, plan, lg, lplan) -> dict:
+    """``[delta]``: a PlanIndex on rmat12 on the card (its plan warm from
+    the listing phase) takes three seeded repair batches and one past
+    CHURN_THRESHOLD; each batch's table equals a full build under the
+    index's decomposition, its k = 5 and 6 counts equal a fresh plan's, and
+    its k = 5 delta (the list kernel over the touched tiles) is exact by
+    three card counts and by its rows, its time split by the trace.  The composed delta since version 0
+    follows the per-batch deltas.  Then one seeded 0.2 % batch on rmat15
+    with its net counts against the pinned counts and the fresh plan's."""
+    import numpy as np
+    from repro_torch.core import ebbkc, pipeline
+    from repro_torch.core.engine_np import Stats
+    from repro_torch.core.graph import from_edges
+    from repro_torch.delta import CHURN_THRESHOLD, PlanIndex
+    from repro_torch.delta.query import delta_net_count
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    out = {"batches": []}
+    stats = Stats()
+    warm(lg, lplan)
+    warm(g, plan)
+    idx = PlanIndex(lg, stats=stats)
+    if not stats.plan_cache_hit:
+        fail("[delta] the rmat12 plan was not warm")
+    rng = np.random.default_rng(7)
+    fields = ("edge_id", "anchors", "offsets", "verts", "thresh", "ekeys",
+              "erank")
+    c5_old = EXPECTED_LIST[5][0]
+    events = []  # (version, gained keys, lost keys) for the composition
+    n = lg.n
+    w5 = n ** np.arange(4, -1, -1, dtype=np.int64)
+    for b, pairs in enumerate((DELTA_REPAIR_PAIRS,) * 3
+                              + (DELTA_REBUILD_PAIRS,)):
+        g_old = idx.graph
+        ins = rng.integers(0, n, (pairs, 2))
+        dele = g_old.edges[rng.choice(g_old.m, pairs, replace=False)]
+        t0 = time.perf_counter()
+        version = idx.apply_batch(insert=ins, delete=dele)
+        repair_s = time.perf_counter() - t0
+        rec = idx._records[-1]
+        info, g_new = rec.info, idx.graph
+        # a rebuilt batch's plan is a fresh build_plan(g_new) already
+        t0 = time.perf_counter()
+        fresh = idx.plan if info.rebuilt else pipeline.build_plan(g_new)
+        build_s = repair_s if info.rebuilt else time.perf_counter() - t0
+        # the repaired table against a whole table build under the index's
+        # (repaired) truss order: a fresh order differs, by design
+        full = pipeline._build_truss_table(g_new, idx.plan._td)
+        table = idx.plan.table("hybrid")
+        same_table = all(np.array_equal(getattr(table, f), getattr(full, f))
+                         for f in fields)
+        counts = {}
+        for k in (5, 6):
+            c = ebbkc.count(g_new, k, plan=idx.plan).count
+            counts[k] = (c, c if info.rebuilt else
+                         ebbkc.count(g_new, k, plan=fresh).count)
+        ops.reset_counts()
+        trace.configure(enabled=True)
+        trace.reset()
+        t0 = time.perf_counter()
+        try:
+            d = rec.delta(5, idx.order, **idx.query)
+        finally:
+            trace.configure(enabled=False)
+        delta_s = time.perf_counter() - t0
+        split = {name: v for name, v in trace.stage_durations(
+            trace.chrome_trace(), DELTA_SPANS).items() if name in DELTA_SPANS}
+        trace.reset()
+        launches, plain = ops.launch_counts(), ops.plain_counts()
+        both = np.intersect1d(g_old.edge_keys(), g_new.edge_keys())
+        g_int = from_edges(n, np.stack([both // n, both % n], 1))
+        c5_int = ebbkc.count(g_int, 5, engine_kwargs=dict(
+            plan_cache=False)).count
+        c5_new = counts[5][1]
+        ins_keys = np.setdiff1d(g_new.edge_keys(), g_old.edge_keys())
+        del_keys = np.setdiff1d(g_old.edge_keys(), g_new.edge_keys())
+        gained = clique_checks(d.gained, g_new, ins_keys)
+        lost = clique_checks(d.lost, g_old, del_keys)
+        run = dict(batch=b, version=version, inserted=info.n_insert,
+                   deleted=info.n_delete, churn=info.churn,
+                   rebuilt=info.rebuilt, touched=int(info.touched_new.size),
+                   repair_s=repair_s, build_plan_s=build_s,
+                   same_table=same_table, counts=counts,
+                   gained=int(d.gained.shape[0]), lost=int(d.lost.shape[0]),
+                   count_old=c5_old, count_new=c5_new, count_both=c5_int,
+                   delta_s=delta_s, split_s=split, launches=launches,
+                   gained_rows=gained, lost_rows=lost)
+        out["batches"].append(run)
+        log(f"[delta] rmat12 batch {b}: +{info.n_insert} -{info.n_delete} "
+            f"pairs, churn {info.churn:.4f} (threshold {CHURN_THRESHOLD}), "
+            f"touched {run['touched']}, "
+            f"{'rebuilt' if info.rebuilt else 'repaired'} in {repair_s:.3f} "
+            f"s against build_plan {build_s:.3f} s; table equal: "
+            f"{same_table}; k=5/6 counts repaired/fresh {counts}; delta "
+            f"k=5 +{run['gained']} -{run['lost']} in {delta_s:.2f} s "
+            f"(counts old {c5_old} new {c5_new} both {c5_int}); gained rows "
+            f"{gained}, lost rows {lost}; launches {launches}")
+        log(f"[delta] rmat12 batch {b}: the delta's split (traced, s): "
+            + ", ".join(f"{name} {v:.3f}" for name, v in split.items()))
+        if not (same_table and all(a == f for a, f in counts.values())):
+            fail(f"[delta] batch {b}: the index's plan differs from a fresh "
+                 f"one: table {same_table}, counts {counts}")
+        if (run["gained"] != c5_new - c5_int
+                or run["lost"] != c5_old - c5_int
+                or not all(gained.values()) or not all(lost.values())):
+            fail(f"[delta] batch {b}: the delta is not exact: {run}")
+        if not launches["clique_list_tiles"] or sum(plain.values()):
+            fail(f"[delta] batch {b}: launches {launches}, plain {plain}")
+        if b == 3 and not info.rebuilt:
+            fail(f"[delta] batch {b} ({pairs} pairs a side) did not pass "
+                 f"the churn threshold: churn {info.churn}")
+        events.append((version, d.gained @ w5, d.lost @ w5))
+        c5_old = c5_new
+        if b == 0:
+            out["first_batch"] = dict(insert=ins, delete=dele,
+                                      gained=d.gained)
+    # the composition since version 0: a clique is gained when its first
+    # and last events are gains, lost when both are losses
+    first, last = {}, {}
+    for version, gk, lk in events:
+        for keys, kind in ((gk, "gain"), (lk, "loss")):
+            for key in keys.tolist():
+                first.setdefault(key, kind)
+                last[key] = kind
+    want_g = sorted(k for k in first if first[k] == last[k] == "gain")
+    want_l = sorted(k for k in first if first[k] == last[k] == "loss")
+    comp = idx.delta(5, 0)
+    composed = (sorted((comp.gained @ w5).tolist()) == want_g
+                and sorted((comp.lost @ w5).tolist()) == want_l)
+    out["composed"] = dict(gained=int(comp.gained.shape[0]),
+                           lost=int(comp.lost.shape[0]), exact=composed)
+    log(f"[delta] composed since version 0: +{comp.gained.shape[0]} "
+        f"-{comp.lost.shape[0]}, equal to the per-batch deltas in order: "
+        f"{composed}; index stats: {stats.plan_repairs} repairs, "
+        f"{stats.plan_rebuilds} rebuilds, {stats.plan_repair_s:.3f} s "
+        f"repairing, {stats.delta_touched_edges} touched edges")
+    if not composed:
+        fail("[delta] the composed delta does not follow the batches")
+
+    # one 0.2 % batch on rmat15, its net counts on the card
+    idx15 = PlanIndex(g)
+    rng = np.random.default_rng(7)
+    pairs = round(0.002 * g.m)
+    ins = rng.integers(0, g.n, (pairs - pairs // 2, 2))
+    dele = g.edges[rng.choice(g.m, pairs // 2, replace=False)]
+    t0 = time.perf_counter()
+    idx15.apply_batch(insert=ins, delete=dele)
+    repair_s = time.perf_counter() - t0
+    rec = idx15._records[-1]
+    info = rec.info
+    run = dict(pairs=pairs, churn=info.churn, rebuilt=info.rebuilt,
+               touched=int(info.touched_new.size), repair_s=repair_s)
+    if info.rebuilt:
+        fresh, run["build_plan_s"] = rec.new_plan, repair_s
+    else:
+        t0 = time.perf_counter()
+        fresh = pipeline.build_plan(idx15.graph)
+        run["build_plan_s"] = time.perf_counter() - t0
+    for k in DELTA15_KS:
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        c_old, c_new, net = delta_net_count(rec.old_plan, rec.new_plan, info,
+                                            k)
+        net_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        c_fresh = (c_new if info.rebuilt
+                   else ebbkc.count(idx15.graph, k, plan=fresh).count)
+        run[f"k={k}"] = dict(retired=c_old, replaced=c_new, net=net,
+                             fresh=c_fresh, net_s=net_s, launches=launches)
+        log(f"[delta] rmat15 0.2 % batch ({pairs} pairs): churn "
+            f"{info.churn:.4f}, touched {run['touched']}, "
+            f"{'rebuilt' if info.rebuilt else 'repaired'} in {repair_s:.2f} "
+            f"s (build_plan {run['build_plan_s']:.2f} s); k={k}: net {net} "
+            f"(retired {c_old}, replaced {c_new}) in {net_s:.2f} s, pinned "
+            f"{EXPECTED[k]} + net = {EXPECTED[k] + net}, fresh plan "
+            f"{c_fresh}; launches {launches}")
+        if EXPECTED[k] + net != c_fresh or (info.rebuilt
+                                            and c_old != EXPECTED[k]):
+            fail(f"[delta] rmat15 k={k}: pinned {EXPECTED[k]} + net {net} "
+                 f"!= fresh {c_fresh} (retired {c_old})")
+    out["rmat15"] = run
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [serve]: the serving tier
+# ---------------------------------------------------------------------------
+
+#: the burst's requests, one a client thread: (graph, k, mode, options)
+SERVE_VERTEX, SERVE_MAX_OUT = 7, 1000
+SERVE_SPECS = (
+    ("rmat15", 5, "count", {}), ("rmat15", 7, "count", {}),
+    ("rmat12", 5, "count", {}), ("rmat12", 6, "count", {}),
+    ("rmat12", 7, "count", {}), ("rmat12", 5, "list", {}),
+    ("rmat12", 5, "list", dict(vertex_filter=SERVE_VERTEX)),
+    ("rmat12", 5, "list", dict(vertex_filter=SERVE_VERTEX,
+                               max_out=SERVE_MAX_OUT)),
+)
+
+
+def serve_burst(svc, specs, tolerate=()):
+    """One paused-then-resumed burst: a client thread per request submits
+    while the service is paused, the service resumes once every request
+    is queued, and each thread waits for its result.  A request that
+    fails with an exception of ``tolerate`` gives that exception as its
+    result; any other failure raises.  Returns (results, wall seconds from
+    resume to the last result)."""
+    import threading
+    results = [None] * len(specs)
+    queued = threading.Barrier(len(specs) + 1)
+    errors = []
+
+    def client(i, name, k, mode, kw):
+        try:
+            ticket = svc.submit(name, k, mode, **kw)
+            queued.wait()
+            try:
+                results[i] = ticket.result(900)
+            except tolerate as exc:
+                results[i] = exc
+        except BaseException as exc:  # raised after join
+            errors.append(exc)
+            queued.abort()
+
+    svc.pause()
+    threads = [threading.Thread(target=client, args=(i, *spec))
+               for i, spec in enumerate(specs)]
+    for t in threads:
+        t.start()
+    queued.wait()
+    t0 = time.perf_counter()
+    svc.resume()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results, time.perf_counter() - t0
+
+
+def serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
+                list_runs) -> dict:
+    """``[serve]``: one CliqueService on the card with rmat15 and rmat12
+    registered (plans warm): a paused-then-resumed burst of 8 client
+    threads (counts k = 5, 7 on rmat15 and k = 5, 6, 7 on rmat12; lists
+    k = 5 on rmat12 unfiltered, filtered and truncated) against the pinned
+    counts and digest; an update of rmat12 and a delta read against
+    ``[delta]``'s first batch; a metrics scrape; the burst's rmat12
+    requests on two lanes of the card, under the profiler for the device's
+    busy share; the same rmat12 requests under the chaos plan (each exact
+    or failed alone, then a clean request exact); and the serial
+    yardstick."""
+    import numpy as np
+    from repro_torch.core import ebbkc
+    from repro_torch.kernels import ops
+    from repro_torch.obs.export import scrape
+    from repro_torch.resilience import inject
+    from repro_torch.serve import CliqueService, apply_vertex_filter
+    graphs = {"rmat15": g, "rmat12": lg}
+    warm(g, plan)
+    warm(lg, lplan)
+    pinned = {("rmat15", 5): EXPECTED[5], ("rmat15", 7): EXPECTED[7],
+              ("rmat12", 5): EXPECTED_LIST[5][0],
+              ("rmat12", 6): EXPECTED_LIST[6][0],
+              ("rmat12", 7): EXPECTED_12_K7}
+    out = {}
+    lone = {}  # the unfiltered listing's rows, which the filtered ones follow
+
+    def check(tag, specs, results):
+        for (name, k, mode, kw), res in zip(specs, results):
+            if mode == "count":
+                ok = res.count == pinned[(name, k)]
+            elif not kw:
+                lone["rows"] = res.rows
+                ok = (res.rows.shape[0], hashlib.sha256(
+                    np.ascontiguousarray(res.rows, dtype="<i8")).hexdigest()
+                ) == EXPECTED_LIST[5]
+            else:
+                want = apply_vertex_filter(lone["rows"], kw["vertex_filter"])
+                want = want[:kw.get("max_out", want.shape[0])]
+                ok = res.rows.tobytes() == want.tobytes()
+            if not ok:
+                fail(f"[serve] {tag}: {name} k={k} {mode} {kw} is not the "
+                     f"pinned result")
+
+    def burst(tag, lanes, specs, profiled=False):
+        svc = CliqueService(devices=lanes)
+        try:
+            for name, graph in graphs.items():
+                svc.register_graph(name, graph)
+            ops.reset_counts()
+            if profiled:
+                busy = device_busy(f"burst {tag}",
+                                   lambda: serve_burst(svc, specs),
+                                   tag="[serve]")
+                results, wall = busy.pop("result")
+            else:
+                busy = None
+                results, wall = serve_burst(svc, specs)
+            launches, plain = ops.launch_counts(), ops.plain_counts()
+            check(tag, specs, results)
+            if not all(r.stats.plan_cache_hit for r in results):
+                fail(f"[serve] burst {tag}: a request built its plan")
+            st = svc.stats
+            lat = sorted(r.latency_s for r in results)
+            ok = sum(1 for r in results if not r.deadline_missed)
+            run = dict(wall_s=wall, p50_s=float(np.percentile(lat, 50)),
+                       p99_s=float(np.percentile(lat, 99)),
+                       goodput_rps=ok / wall, latencies_s=lat,
+                       fused_batches=st.fused_batches,
+                       cross_request_batches=st.cross_request_batches,
+                       fused_chunks=st.fused_chunks, launches=launches,
+                       busy=busy)
+            log(f"[serve] burst {tag}: {len(results)} requests exact in "
+                f"{wall:.2f} s, latency p50 {run['p50_s']:.2f} s p99 "
+                f"{run['p99_s']:.2f} s, goodput {run['goodput_rps']:.3f} "
+                f"req/s, fused batches {st.fused_batches} (cross-request "
+                f"{st.cross_request_batches}, {st.fused_chunks} chunks), "
+                f"launches {launches}"
+                + (f", device busy {100 * busy['busy_share']:.2f}% of the "
+                   f"burst" if busy and busy["busy_share"] is not None
+                   else ""))
+            if st.cross_request_batches == 0:
+                fail(f"[serve] burst {tag}: no cross-request batch")
+            if sum(plain.values()) or not all(
+                    launches[k] for k in ("triangle_count_tiles",
+                                          "clique_count_tiles",
+                                          "clique_list_tiles")):
+                fail(f"[serve] burst {tag}: launches {launches}, plain "
+                     f"{plain}")
+            return svc, run
+        except BaseException:
+            svc.close()
+            raise
+
+    svc, out["one_lane"] = burst("1 lane", ["cuda:0"], SERVE_SPECS)
+    try:
+        # update rmat12 with [delta]'s first batch and read the delta
+        first = delta_runs["first_batch"]
+        t0 = time.perf_counter()
+        version = svc.update_graph("rmat12", insert=first["insert"],
+                                   delete=first["delete"])
+        update_s = time.perf_counter() - t0
+        ops.reset_counts()
+        d = svc.submit("rmat12", 5, "delta", since_version=0).result(900)
+        same = d.rows.tobytes() == first["gained"].tobytes()
+        out["delta"] = dict(version=version, update_s=update_s,
+                            rows=int(d.rows.shape[0]), equal=same,
+                            latency_s=d.latency_s,
+                            launches=ops.launch_counts())
+        log(f"[serve] update_graph rmat12 -> version {version} in "
+            f"{update_s:.3f} s; delta since 0: {d.rows.shape[0]} rows in "
+            f"{d.latency_s:.2f} s, equal to [delta]'s first batch: {same}; "
+            f"launches {out['delta']['launches']}")
+        if not same or svc.stats.graph_updates != 1:
+            fail("[serve] the delta read differs from [delta]'s first batch")
+        # the metrics collector and server
+        from repro_torch.obs import metrics as obs_metrics
+        from repro_torch.obs.export import MetricsServer
+        reg = obs_metrics.get_registry()
+        reg.add_collector(svc._collect_metrics)
+        srv = MetricsServer(port=0, registry=reg)
+        try:
+            text = scrape(srv.address)
+        finally:
+            srv.close()
+            reg.remove_collector(svc._collect_metrics)
+        serve_series = sorted({line.split("{")[0].split(" ")[0]
+                               for line in text.splitlines()
+                               if line.startswith("repro_serve_")})
+        out["metrics"] = dict(series=serve_series, bytes=len(text))
+        log(f"[serve] metrics scrape {srv.address}/metrics: "
+            f"{len(serve_series)} repro_serve_ series, {len(text)} bytes: "
+            f"{', '.join(serve_series)}")
+        if "repro_serve_cross_request_batches_total" not in serve_series:
+            fail("[serve] the scrape lacks the serve series")
+    finally:
+        svc.close()
+    # two lanes take the rmat12 requests, under the profiler (the device's
+    # busy share): the rmat15 counts' time is the scheduler thread's serial
+    # packing, one lane or two, and the full burst's 426,000 profiler
+    # events take about a minute to read
+    svc, out["two_lanes"] = burst(
+        "2 lanes", ["cuda:0", "cuda:0"],
+        [s for s in SERVE_SPECS if s[0] == "rmat12"], profiled=True)
+    svc.close()
+
+    # the rmat12 burst under the chaos plan: on a CUDA lane an injected
+    # fault is retried on the kernel and then raises, so a request whose
+    # launch draws a fault on every attempt fails with FaultInjected; it
+    # must fail alone (every other request exact), and the service must
+    # then serve a clean request exactly
+    chaos = [s for s in SERVE_SPECS if s[0] == "rmat12"]
+    svc = CliqueService(devices=["cuda:0"])
+    try:
+        svc.register_graph("rmat12", lg)
+        inject.configure("seed=7;*=0.1")
+        try:
+            results, wall = serve_burst(svc, chaos,
+                                        tolerate=(inject.FaultInjected,))
+            fired = inject.fired()
+        finally:
+            inject.configure(None)
+        failed = [f"{name} k={k} {mode}" + (" filtered" if kw else "")
+                  for (name, k, mode, kw), r in zip(chaos, results)
+                  if isinstance(r, inject.FaultInjected)]
+        served = [(spec, r) for spec, r in zip(chaos, results)
+                  if not isinstance(r, inject.FaultInjected)]
+        check("chaos", [spec for spec, _ in served], [r for _, r in served])
+        isolated = svc.stats.isolated_failures
+        t0 = time.perf_counter()
+        clean = svc.submit("rmat12", 6, "count").result(900)
+        clean_s = time.perf_counter() - t0
+        check("after chaos", [("rmat12", 6, "count", {})], [clean])
+        retries = sum(r.stats.retries for _, r in served)
+        out["chaos"] = dict(wall_s=wall, fired=fired, retries=retries,
+                            engine_retries=svc.engine_stats.retries,
+                            failed=failed, exact=len(served),
+                            isolated_failures=isolated, clean_s=clean_s)
+        log(f"[serve] burst of {len(chaos)} rmat12 requests under "
+            f"seed=7;*=0.1 in {wall:.2f} s: {len(served)} exact, "
+            f"{len(failed)} failed alone with FaultInjected {failed} "
+            f"({isolated} isolation events); faults fired {fired}, retries "
+            f"{svc.engine_stats.retries} (engine) {retries} (requests); "
+            f"then a clean k=6 count exact in {clean_s:.2f} s")
+        if not sum(fired.values()):
+            fail("[serve] the chaos plan fired no fault")
+        # isolated_failures counts isolation events: a request is isolated
+        # once for each of its fused batches or streams that failed
+        if isolated < len(failed):
+            fail(f"[serve] {len(failed)} requests failed but the scheduler "
+                 f"isolated {isolated} times")
+    finally:
+        svc.close()
+
+    # the serial yardstick: the same requests one at a time through ebbkc
+    # (the rmat15 counts are [main]'s queries, k = 5 without its plan build,
+    # and the listing [list main]'s warm k = 5 query; a serial client
+    # filters the listing's rows itself)
+    serial = {}
+    for name, k, mode, kw in SERVE_SPECS:
+        key = f"{name} k={k} {mode}" + ("" if not kw else " filtered")
+        if name == "rmat15":
+            serial[key] = main_runs[k]["wall_s"] - main_runs[k]["plan_build_s"]
+            continue
+        if mode == "list":
+            if not kw:  # the filtered ones are the client's own filtering
+                serial[key] = list_runs["k=5 warm"]["wall_s"]
+            continue
+        t0 = time.perf_counter()
+        if mode == "count":
+            got = ebbkc.count(graphs[name], k).count
+            if got != pinned[(name, k)]:
+                fail(f"[serve] serial {key}: {got}")
+        else:
+            rows, _ = ebbkc.list_cliques(graphs[name], k)
+            if rows.shape[0] != EXPECTED_LIST[5][0]:
+                fail(f"[serve] serial {key}: {rows.shape[0]} rows")
+        serial[key] = time.perf_counter() - t0
+    total = sum(serial.values())
+    out["serial"] = dict(walls_s=serial, total_s=total,
+                         goodput_rps=len(SERVE_SPECS) / total)
+    log(f"[serve] serial yardstick (one request at a time through ebbkc, "
+        f"not gated): {total:.2f} s for {len(SERVE_SPECS)} requests "
+        f"({len(SERVE_SPECS) / total:.3f} req/s): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in serial.items()))
     return out
 
 
@@ -1699,6 +2467,7 @@ def main(argv=None) -> int:
         fail(f"launches {launches} != one per packed batch {expect_launches}")
     count_launches = launches
 
+    log(f"[time] [main] done at {time.perf_counter() - t_start:.1f} s")
     # -- kernel vs plain on main-path batches ------------------------------
     log("[kernels] main-path batches (an even sample of each bin, and the "
         "bin's real last batch)")
@@ -1746,8 +2515,11 @@ def main(argv=None) -> int:
     lg = rmat_graph(LIST_SCALE, edge_factor=RMAT_EDGE_FACTOR, seed=RMAT_SEED)
     log(f"[list main] rmat_graph({LIST_SCALE}, edge_factor="
         f"{RMAT_EDGE_FACTOR}, seed={RMAT_SEED}): n={lg.n} m={lg.m}")
+    sg = rmat_graph(LIST6_SCALE, edge_factor=RMAT_EDGE_FACTOR,
+                    seed=RMAT_SEED)
     list_runs, list_plain = {}, {}
-    for run, k in (("k=5 cold", 5), ("k=5 warm", 5), ("k=6 warm", 6)):
+    for run, k, graph in (("k=5 cold", 5, lg), ("k=5 warm", 5, lg),
+                          ("k=6 rmat11", 6, sg)):
         if run == "k=5 cold":
             pipeline.clear_plan_cache()
         digest, nrows = hashlib.sha256(), [0]
@@ -1756,15 +2528,16 @@ def main(argv=None) -> int:
             digest.update(np.ascontiguousarray(chunk, dtype="<i8"))
             nrows[0] += chunk.shape[0]
         stage = {}
-        if run == "k=6 warm":  # traced; [obs] reads the trace
+        if k == 6:  # traced; [obs] reads the trace
             trace.configure(enabled=True)
             trace.reset()
         ops.reset_counts()
         t0 = time.perf_counter()
-        res = listing.stream_cliques(lg, k, listing.CallbackSink(hash_rows),
+        res = listing.stream_cliques(graph, k,
+                                     listing.CallbackSink(hash_rows),
                                      stage_times=stage)
         wall = time.perf_counter() - t0
-        if run == "k=6 warm":
+        if k == 6:
             trace.configure(enabled=False)
             list_trace = (trace.chrome_trace(), trace.dropped(), wall,
                           res.stats)
@@ -1773,8 +2546,8 @@ def main(argv=None) -> int:
         list_plain[run] = ops.plain_counts()
         st = res.stats
         queries.append((f"[list main] {run}", st))
-        batches, tiles = batches_per_bin(pipeline.cached_plan(lg, "hybrid"),
-                                         k)
+        batches, tiles = batches_per_bin(
+            pipeline.cached_plan(graph, "hybrid"), k)
         list_runs[run] = dict(
             k=k, rows=nrows[0], sha256=digest.hexdigest(), wall_s=wall,
             rows_per_s=nrows[0] / wall, tiles=res.tiles,
@@ -1795,7 +2568,7 @@ def main(argv=None) -> int:
             f"{stage.get('decode', 0.0):.2f} s of which host relist of "
             f"overflowed tiles {stage.get('relist', 0.0):.2f} s, sink "
             f"{stage.get('emit', 0.0):.2f} s; launches {delta}")
-        want_rows, want_sha = EXPECTED_LIST[k]
+        want_rows, want_sha = EXPECTED_LIST[k] if k == 5 else EXPECTED_LIST6
         if (nrows[0], digest.hexdigest()) != (want_rows, want_sha):
             fail(f"listing k={k} ({run}) gave {nrows[0]} rows, sha256 "
                  f"{digest.hexdigest()}; expected {want_rows}, {want_sha}")
@@ -1805,14 +2578,15 @@ def main(argv=None) -> int:
                 == sum(batches.values()) > 0):
             fail(f"listing k={k}: launches {delta} != one list and one "
                  f"count launch per packed batch ({sum(batches.values())})")
-    if list_runs["k=6 warm"]["overflowed"] == 0:
+    if list_runs["k=6 rmat11"]["overflowed"] == 0:
         fail("listing k=6 overflowed no tile: the host relist never ran")
     # the kernels line reports the k=6 run, whose batches give its row
-    list_launches = list_runs["k=6 warm"]["launches"]
+    list_launches = list_runs["k=6 rmat11"]["launches"]
     log(f"[list main] plain-version calls per run {list_plain}")
     if any(sum(plain.values()) for plain in list_plain.values()):
         fail(f"a plain version ran on the listing path: {list_plain}")
 
+    log(f"[time] [list main] done at {time.perf_counter() - t_start:.1f} s")
     # -- the edge-candidate path: one edge of every tile of the k=5 batches
     ops.reset_counts()
     t0 = time.perf_counter()
@@ -1866,6 +2640,7 @@ def main(argv=None) -> int:
     dispatch_runs = dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
                                    queries)
 
+    log(f"[time] [dispatch] done at {time.perf_counter() - t_start:.1f} s")
     # -- phase 5: the launcher ---------------------------------------------
     ops.reset_counts()
     buf = io.StringIO()
@@ -1919,16 +2694,32 @@ def main(argv=None) -> int:
     log(f"[cli] rmat:10 k=5 --devices 1 --offline-lpt --verify: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    log(f"[time] [cli] done at {time.perf_counter() - t_start:.1f} s")
     # -- observability and resilience ----------------------------------------
     obs_runs = obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
                          queries)
+    log(f"[time] [obs] done at {time.perf_counter() - t_start:.1f} s")
     resilience_runs = resilience_phase(lg, lplan, queries, cli_outputs)
+    log(f"[time] [resilience] done at {time.perf_counter() - t_start:.1f} s")
 
     # -- the new tile widths, plan persistence, the tuner --------------------
     widths_runs = widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
                                queries)
+    log(f"[time] [widths] done at {time.perf_counter() - t_start:.1f} s")
     persist_runs = persist_phase(g, plan, lg, lplan, main_runs)
+    log(f"[time] [persist] done at {time.perf_counter() - t_start:.1f} s")
     tune_runs = tune_phase(g, main_runs)
+    log(f"[time] [tune] done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- tiles wider than 256, dynamic graphs, the serving tier --------------
+    wide_runs = wide_phase(rows, errs, ptxas)
+    log(f"[time] [wide] done at {time.perf_counter() - t_start:.1f} s")
+    delta_runs = delta_phase(g, plan, lg, lplan)
+    log(f"[time] [delta] done at {time.perf_counter() - t_start:.1f} s")
+    serve_runs = serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
+                             list_runs)
+    log(f"[time] [serve] done at {time.perf_counter() - t_start:.1f} s")
+    del delta_runs["first_batch"]  # arrays, handed to [serve]
 
     # -- summary -----------------------------------------------------------
     # each kernel's row: the bin with most launches on its path; launches
@@ -1978,6 +2769,7 @@ def main(argv=None) -> int:
                  tag: {f"{kernel} l={l}": v for (kernel, l), v in t.items()}
                  for tag, t in widths_runs["times"].items()}},
              "persist": persist_runs, "tune": tune_runs,
+             "wide": wide_runs, "delta": delta_runs, "serve": serve_runs,
              "launches": count_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,

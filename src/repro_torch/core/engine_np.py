@@ -16,8 +16,7 @@ bin here, and the launcher's ``--verify`` checks against it.
                      spilled tiles with it.
 
 All support early termination into :mod:`repro_torch.core.plex`.  Still
-to be ported: ``count_rec_V`` (VBBkC baseline), and the ``Stats`` fields
-of the delta layer.
+to be ported: ``count_rec_V`` (VBBkC baseline).
 """
 from __future__ import annotations
 
@@ -82,6 +81,14 @@ class Stats:
     # cold-path build time (0.0 on warm queries)
     plan_cache_hit: bool = False
     plan_build_s: float = 0.0
+    # incremental plan maintenance (repro_torch.delta.repair): batches
+    # repaired in place vs rebuilt from scratch (churn past the threshold,
+    # or a family with no local-repair path), wall seconds spent splicing,
+    # and edges whose tiles were re-extracted across all repairs
+    plan_repairs: int = 0
+    plan_rebuilds: int = 0
+    plan_repair_s: float = 0.0
+    delta_touched_edges: int = 0
     # persistent autotuner (repro_torch.tune): wall seconds spent in live
     # tuning measurements, and True when every tuning lookup of the query
     # was answered from a cache layer (record or in-process)
@@ -126,6 +133,10 @@ class Stats:
         "sink_bytes": "sum",
         "plan_cache_hit": "or",
         "plan_build_s": "sum",
+        "plan_repairs": "sum",
+        "plan_rebuilds": "sum",
+        "plan_repair_s": "sum",
+        "delta_touched_edges": "sum",
         "tune_s": "sum",
         "tune_cache_hit": "or",
     }

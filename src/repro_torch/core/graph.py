@@ -103,6 +103,50 @@ def from_edges(n: int, edges: Iterable[Tuple[int, int]] | np.ndarray) -> Graph:
     return Graph(n=n, edges=e, indptr=indptr, indices=dst)
 
 
+def _canon_keys(n: int, pairs, name: str) -> np.ndarray:
+    """Canonical sorted-unique edge keys (u*n+v, u<v) for a pair batch.
+
+    Self loops are dropped; endpoints outside ``[0, n)`` raise (an edge
+    batch can never grow the vertex set -- delta plans key on ``n``).
+    """
+    if pairs is None:
+        return np.zeros(0, dtype=np.int64)
+    e = np.asarray(list(pairs) if not isinstance(pairs, np.ndarray)
+                   else pairs, dtype=np.int64).reshape(-1, 2)
+    if e.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    if e.min() < 0 or e.max() >= n:
+        raise ValueError(
+            f"{name} batch references vertices outside [0, {n})")
+    lo = np.minimum(e[:, 0], e[:, 1])
+    hi = np.maximum(e[:, 0], e[:, 1])
+    keep = lo != hi
+    return np.unique(lo[keep] * np.int64(n) + hi[keep])
+
+
+def apply_edge_batch(g: Graph, insert=None, delete=None) -> Graph:
+    """Functional edge mutation: a new canonical Graph, same vertex set.
+
+    ``insert`` / ``delete`` are iterables (or arrays) of vertex pairs in
+    any orientation.  Deletes are applied first, then inserts; inserting
+    a present edge or deleting an absent one is a no-op, so the batch is
+    idempotent.  A pair appearing in both is inserted (insert wins).
+    This is the mutable-graph seam the incremental plan index
+    (:mod:`repro_torch.delta`) maintains tiles over -- the returned graph is in
+    the exact canonical form :func:`from_edges` produces, so plans built
+    on it are byte-identical to from-scratch plans of the same edge set.
+    """
+    delk = _canon_keys(g.n, delete, "delete")
+    insk = _canon_keys(g.n, insert, "insert")
+    keys = g.edge_keys()
+    if delk.size:
+        keys = np.setdiff1d(keys, delk, assume_unique=True)
+    if insk.size:
+        keys = np.union1d(keys, insk)
+    edges = np.stack([keys // np.int64(g.n), keys % np.int64(g.n)], axis=1)
+    return from_edges(g.n, edges)
+
+
 def degeneracy_order(g: Graph) -> Tuple[np.ndarray, int]:
     """Bucket peeling. Returns (order, delta): order[i] = i-th removed vertex.
 

@@ -136,15 +136,22 @@ class TileTable:
         return np.nonzero(keep)[0]
 
 
-def _build_truss_table(g: Graph, td: TrussDecomposition) -> TileTable:
+def _build_truss_table(g: Graph, td: TrussDecomposition,
+                       eids: Optional[np.ndarray] = None) -> TileTable:
+    """Truss-family membership table; ``eids`` restricts to a sorted
+    subset of owner edges (the localized rebuild :mod:`repro_torch.delta`
+    splices into a repaired plan -- cost bounded by those edges'
+    neighborhoods instead of m)."""
     ek = g.edge_keys()
     m = g.m
-    if m == 0:
+    sub = np.arange(m, dtype=np.int64) if eids is None \
+        else np.asarray(eids, dtype=np.int64)
+    if m == 0 or sub.size == 0:
         z = np.zeros(0, dtype=np.int64)
         return TileTable("truss", z, np.zeros((0, 2), np.int64),
                          np.zeros(1, np.int64), z, z, ek, td.rank)
     deg = np.diff(g.indptr)
-    u, v = g.edges[:, 0], g.edges[:, 1]
+    u, v = g.edges[sub, 0], g.edges[sub, 1]
     swap = deg[u] > deg[v]
     a = np.where(swap, v, u)
     b = np.where(swap, u, v)
@@ -152,11 +159,15 @@ def _build_truss_table(g: Graph, td: TrussDecomposition) -> TileTable:
     owner, pos = ragged_expand(deg[a])
     idx = g.indptr[a][owner] + pos
     w = g.indices[idx]
-    own_e = owner
+    own_e = sub[owner]
     # pi_tau rank of the CSR edge (a, w) at each expanded slot: one bulk
-    # 2m-key probe over the whole CSR
-    src = np.repeat(np.arange(g.n, dtype=np.int64), deg)
-    rank_aw = td.rank[g.edge_ids(src, g.indices)][idx]
+    # 2m-key probe when building the whole table, per-slot probes (cost
+    # bounded by the subset's neighborhoods) for a localized rebuild
+    if eids is None:
+        src = np.repeat(np.arange(g.n, dtype=np.int64), deg)
+        rank_aw = td.rank[g.edge_ids(src, g.indices)][idx]
+    else:
+        rank_aw = r_e[g.edge_ids(a[owner], w)]
     keep = (rank_aw > r_e[own_e]) & (w != b[owner])
     own_e, w, bb = own_e[keep], w[keep], b[owner][keep]
     hit, p = _edge_lookup(ek, m, g.n, np.minimum(bb, w), np.maximum(bb, w))

@@ -50,6 +50,29 @@ def edge_supports(g: Graph) -> np.ndarray:
     return np.bincount(owner[hit], minlength=g.m).astype(np.int64)
 
 
+def edge_subset_supports(g: Graph, eids: np.ndarray) -> np.ndarray:
+    """Support (triangle count) for just the edges ``eids`` of ``g``.
+
+    The localized half of :func:`edge_supports`: cost is bounded by the
+    neighborhoods of the requested edges, not m -- this is what lets
+    :mod:`repro_torch.delta` re-derive supports only for the edges an update
+    batch touched.
+    """
+    eids = np.asarray(eids, dtype=np.int64)
+    if eids.size == 0 or g.m == 0:
+        return np.zeros(eids.size, dtype=np.int64)
+    deg = np.diff(g.indptr)
+    u, v = g.edges[eids, 0], g.edges[eids, 1]
+    a = np.where(deg[u] <= deg[v], u, v)
+    b = np.where(deg[u] <= deg[v], v, u)
+    counts = deg[a]
+    owner, pos = ragged_expand(counts)
+    idx = g.indptr[a][owner] + pos
+    w = g.indices[idx]
+    hit = g.has_edges(b[owner], w) & (w != b[owner])
+    return np.bincount(owner[hit], minlength=eids.size).astype(np.int64)
+
+
 def truss_decomposition(g: Graph) -> TrussDecomposition:
     m = g.m
     if m == 0:

@@ -130,11 +130,14 @@ def _bind(path: Path) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     so.triangle_count_tiles_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     so.triangle_count_tiles_launch.restype = i32
+    i64 = ctypes.c_longlong
     for name in ("clique_count_tiles_launch", "clique_count_items_launch"):
-        getattr(so, name).argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+        getattr(so, name).argtypes = [ptr] * 6 + [i64] + [i32] * 3 + [ptr]
         getattr(so, name).restype = i32
-    so.clique_list_tiles_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    so.clique_list_tiles_launch.argtypes = [ptr] * 9 + [i64] + [i32] * 4 + [ptr]
     so.clique_list_tiles_launch.restype = i32
+    so.dfs_slot_words.argtypes = [i32, i32]
+    so.dfs_slot_words.restype = i64
     so.edge_candidates_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     so.edge_candidates_launch.restype = i32
     return so

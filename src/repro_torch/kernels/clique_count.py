@@ -20,10 +20,16 @@ which takes the role ``lax_backend`` plays for counting in the reference.
 (tile b, v), the items' counts summed over x, with its plain version
 :func:`clique_count_items_torch`.
 
-Both take every l >= 1 and any number of tiles B, as the reference does:
-for l > T no tile holds an l-clique and the wrappers return zeros without
-a launch, and a batch of :data:`LAUNCH_TILES` tiles or more goes to the
-card in several launches (an item packs its tile index into 16 bits).
+Both take every l >= 1, any number of tiles B and every tile width
+T = 32 * W, as the reference does: for l > T no tile holds an l-clique and
+the wrappers return zeros without a launch, and a batch of
+:data:`LAUNCH_TILES` tiles or more goes to the card in several launches
+(an item packs its tile index into 16 bits).  Tiles up to
+:data:`NATIVE_T` run the kernel's instantiation for their W; wider ones
+its wide path (``csrc/dfs_wide.cuh``, chosen by the same C entry
+points), which takes 64-bit items and a per-warp scratch that the wrapper
+allocates, in launches whose item list stays within
+:data:`WIDE_ITEM_BYTES`.
 """
 from __future__ import annotations
 
@@ -39,6 +45,18 @@ from .common import (MASK32, WORD, check_tiles, count_call, edges_within,
 #: most tiles one launch of a DFS kernel takes (an item packs its tile
 #: index into 16 bits); the wrappers split a larger batch into launches
 LAUNCH_TILES = (1 << 16) - 1
+
+#: widest tile with an instantiation of its own (W = T/32 <= 8) in every
+#: kernel; wider tiles take the kernels' wide path, W a runtime argument
+NATIVE_T = 256
+#: most bytes of one wide launch's item list (B * T * (T + 1) / 2 uint64)
+WIDE_ITEM_BYTES = 1 << 30
+#: most bytes of one wide launch's per-warp DFS scratch
+WIDE_SCRATCH_BYTES = 256 << 20
+#: warps an SM holds at once (2,048 threads): the wide path's largest grid
+_WARPS_PER_SM = 64
+#: warps of one block of the wide kernels (``dfs_wide.cuh`` kWarps)
+_WIDE_BLOCK_WARPS = 8
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
@@ -164,6 +182,41 @@ def launch_chunks(B: int, limit: int = LAUNCH_TILES):
     return [(lo, min(B, lo + limit)) for lo in range(0, B, limit)]
 
 
+def count_launch_tiles(T: int) -> int:
+    """Most tiles of width T one launch of the count kernels takes: fewer
+    than 2**16, and at T > :data:`NATIVE_T` few enough that the item list
+    stays within :data:`WIDE_ITEM_BYTES` (63 tiles at T = 2048)."""
+    if T <= NATIVE_T:
+        return LAUNCH_TILES
+    return max(1, min(LAUNCH_TILES, WIDE_ITEM_BYTES // (4 * T * (T + 1))))
+
+
+def wide_scratch(T: int, l: int, device: torch.device) -> torch.Tensor:
+    """The wide path's per-warp DFS scratch on ``device``: a slot of
+    ``dfs_slot_words(T, l)`` words (``csrc/clique_count.cu``) for every
+    warp the card holds at once, within :data:`WIDE_SCRATCH_BYTES` (at
+    least one block's worth)."""
+    slot = _build.lib().dfs_slot_words(T, l)
+    warps = torch.cuda.get_device_properties(device).multi_processor_count \
+        * _WARPS_PER_SM
+    slots = max(_WIDE_BLOCK_WARPS,
+                min(warps, WIDE_SCRATCH_BYTES // (4 * slot)))
+    return torch.empty(slots * slot, dtype=torch.int32, device=device)
+
+
+def dfs_scratch(B: int, T: int, l: int, device: torch.device):
+    """One DFS launch's scratch for B tiles of width T: the item list, and
+    the scratch arguments of the C entry points (the wide path's scratch
+    pointer and words; null and 0 at T <= :data:`NATIVE_T`) with the
+    tensor that holds them.  Returns ``(items, (ptr, words), scratch)``."""
+    if T <= NATIVE_T:
+        return item_list(B, T, device), (None, 0), None
+    scratch = wide_scratch(T, l, device)
+    items = torch.empty(B * T * (T + 1) // 2, dtype=torch.int64,
+                        device=device)
+    return items, (scratch.data_ptr(), scratch.numel()), scratch
+
+
 def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
                        l: int) -> torch.Tensor:
     """(B, T, W) int32, (B, W) int32 -> (B,) int64 per-tile l-clique counts
@@ -176,11 +229,11 @@ def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
         raise ValueError(f"no clique kernel for device {A.device}")
     if l > T:  # no tile of T vertices holds an l-clique
         return torch.zeros(B, dtype=torch.int64, device=A.device)
-    chunks = launch_chunks(B)
+    chunks = launch_chunks(B, count_launch_tiles(T))
     # out[:B] the counts, then each launch's two item counters, all 0
     out = torch.zeros(B + 2 * len(chunks), dtype=torch.int32, device=A.device)
     if B:
-        items = item_list(chunks[0][1], T, A.device)
+        items, scratch_args, _scratch = dfs_scratch(chunks[0][1], T, l, A.device)
         so = _build.lib()
         for i, (lo, hi) in enumerate(chunks):
             with torch.cuda.device(A.device):
@@ -188,7 +241,7 @@ def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
                 rc = so.clique_count_tiles_launch(
                     A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
                     out[lo:hi].data_ptr(), items.data_ptr(),
-                    out[B + 2 * i:].data_ptr(), hi - lo, T, l, stream)
+                    out[B + 2 * i:].data_ptr(), *scratch_args, hi - lo, T, l, stream)
             if rc:
                 raise RuntimeError(f"clique_count_tiles launch failed: CUDA "
                                    f"error {rc}")
@@ -218,8 +271,8 @@ def clique_count_items(A: torch.Tensor, cand: torch.Tensor,
         raise ValueError(f"no clique kernel for device {A.device}")
     per_v = torch.zeros((B, T), dtype=torch.int64, device=A.device)
     if B and l <= T:
-        chunks = launch_chunks(B)
-        items = item_list(chunks[0][1], T, A.device)
+        chunks = launch_chunks(B, count_launch_tiles(T))
+        items, scratch_args, _scratch = dfs_scratch(chunks[0][1], T, l, A.device)
         counters = torch.zeros(2 * len(chunks), dtype=torch.int32,
                                device=A.device)
         so = _build.lib()
@@ -229,7 +282,8 @@ def clique_count_items(A: torch.Tensor, cand: torch.Tensor,
                 rc = so.clique_count_items_launch(
                     A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
                     per_v[lo:hi].data_ptr(), items.data_ptr(),
-                    counters[2 * i:].data_ptr(), hi - lo, T, l, stream)
+                    counters[2 * i:].data_ptr(), *scratch_args, hi - lo, T, l,
+                    stream)
             if rc:
                 raise RuntimeError(f"clique_count_items launch failed: CUDA "
                                    f"error {rc}")

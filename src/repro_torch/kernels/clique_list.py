@@ -28,7 +28,9 @@ It takes every l >= 1 and any number of tiles, as the reference does: for
 l > T no tile holds an l-clique and it returns the empty triple without a
 launch, and a large batch goes to the card in several launches, each of at
 most :data:`~repro_torch.kernels.clique_count.LAUNCH_TILES` tiles and of a
-per-item count buffer within :data:`PER_X_BYTES`.
+per-item count buffer within :data:`PER_X_BYTES`.  Tiles wider than
+:data:`~repro_torch.kernels.clique_count.NATIVE_T` take the kernel's wide
+path, as the count kernels do.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
-from .clique_count import LAUNCH_TILES, item_list, launch_chunks
+from .clique_count import LAUNCH_TILES, dfs_scratch, launch_chunks
 from .common import (MASK32, WORD, check_tiles, count_call, emit_edges,
                      emit_frontier, emit_triangles, gt_masks, member_rows,
                      popcount_words, unpack_bits, widen)
@@ -189,7 +191,7 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
         # each item's count, then first rank, at [b, v, x]; the list of
         # items; per launch the list's length and the two passes' counters
         per_x = torch.zeros((n, T, T), dtype=torch.int64, device=A.device)
-        items = item_list(n, T, A.device)
+        items, scratch_args, _scratch = dfs_scratch(n, T, l, A.device)
         counters = torch.zeros(3 * len(chunks), dtype=torch.int32,
                                device=A.device)
         so = _build.lib()
@@ -202,8 +204,8 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
                     A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
                     buf[lo:hi].data_ptr(), cnt[lo:hi].data_ptr(),
                     ovf[lo:hi].data_ptr(), per_x.data_ptr(), items.data_ptr(),
-                    counters[3 * i:].data_ptr(), hi - lo, T, l, capacity,
-                    stream)
+                    counters[3 * i:].data_ptr(), *scratch_args, hi - lo, T, l,
+                    capacity, stream)
             if rc:
                 raise RuntimeError(f"clique_list_tiles launch failed: CUDA "
                                    f"error {rc}")

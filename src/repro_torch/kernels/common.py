@@ -31,11 +31,6 @@ from ..core.bitops import (  # noqa: F401  (re-exported kernel API)
     widen,
 )
 
-#: widest tile the CUDA kernels take (T = 32 * W, 1 <= W <= 8): an item of
-#: the DFS kernels packs its two vertices into 8 bits each.  The plain
-#: versions take any multiple of 32, as the reference does.
-MAX_KERNEL_T = 256
-
 #: guards every kernel module's launch and plain-call counters: the
 #: listing dispatcher's decode worker launches kernels beside the thread
 #: that submits, and ``+= 1`` on a module global is not atomic
@@ -222,10 +217,10 @@ def check_adjacency(A: torch.Tensor) -> Tuple[int, int, int]:
     """Validate packed tiles for the kernels: a contiguous (B, T, T//32)
     int32 word view with T a positive multiple of 32.  Returns (B, T, W).
 
-    On the card the kernels take T up to :data:`MAX_KERNEL_T` and read a
-    row by loads of :func:`row_alignment` bytes (``csrc/tile_bits.cuh``
-    ``load_row``), so a CUDA tensor must start on a multiple of that; an
-    offset view that does not raises here instead of faulting on the card.
+    On the card the kernels read a row by loads of :func:`row_alignment`
+    bytes (``csrc/tile_bits.cuh`` ``load_row``), so a CUDA tensor must
+    start on a multiple of that; an offset view that does not raises here
+    instead of faulting on the card.
     """
     if A.dtype != torch.int32:
         raise TypeError(f"packed words must be an int32 view, got {A.dtype}")
@@ -239,9 +234,6 @@ def check_adjacency(A: torch.Tensor) -> Tuple[int, int, int]:
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
     if A.device.type == "cuda":
-        if T > MAX_KERNEL_T:
-            raise ValueError(f"the CUDA kernels take T <= {MAX_KERNEL_T}, "
-                             f"got T={T}")
         if A.data_ptr() % row_alignment(W):
             raise ValueError(f"A must start on a {row_alignment(W)}-byte "
                              f"boundary on the card (the kernels load whole "

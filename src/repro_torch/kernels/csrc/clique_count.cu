@@ -39,25 +39,39 @@
 //   order-free, so the reference's wrap is kept exactly.  The wrapper zeroes
 //   out and the two counters.  l <= 3 rides on the same items (an item
 //   counts 1, or popcount(t) at l = 3).
+// Tiles wider than 256 (W > 8) take the wide path of dfs_wide.cuh, chosen
+//   by the same entry points: one instantiation with W a runtime argument,
+//   a warp an item, 64-bit items and the DFS's sets in per-warp global
+//   scratch.  W = 1..8 keep their instantiations above.
 #include <cuda_runtime.h>
 
 #include "dfs_items.cuh"
+#include "dfs_wide.cuh"
 
 namespace repro_torch {
 namespace {
 
 template <ItemOut kOut>
 int count_launch(const void* A, const void* cand, void* out, void* per, void* list,
-                 void* counters, int B, int T, int l, void* stream) {
+                 void* counters, void* scratch, long long scratch_words, int B, int T, int l,
+                 void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (l < 1 || l > T || B >= (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const uint32_t*>(A);
   const auto* c = static_cast<const uint32_t*>(cand);
-  auto* li = static_cast<uint32_t*>(list);
   auto* ctr = static_cast<unsigned*>(counters);
   auto* o = static_cast<uint32_t*>(out);
   auto* p = static_cast<unsigned long long*>(per);
   auto st = static_cast<cudaStream_t>(stream);
+  if (T > 256) {  // the wide path: W a runtime argument
+    if (!wide::wide_args_ok(B, T, l, scratch_words))
+      return static_cast<int>(cudaErrorInvalidValue);
+    wide::launch_items_wide<kOut>(a, c, static_cast<unsigned long long*>(list), ctr, o, p,
+                                  static_cast<uint32_t*>(scratch),
+                                  scratch_words / wide::slot_words(T, l), B, T, l, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (l < 1 || l > T || B >= (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);
+  auto* li = static_cast<uint32_t*>(list);
   cudaError_t err;
   switch (T) {
     case 32: err = launch_items<1, kOut>(a, c, li, ctr, o, p, B, l, st); break;
@@ -77,26 +91,38 @@ int count_launch(const void* A, const void* cand, void* out, void* per, void* li
 }  // namespace
 }  // namespace repro_torch
 
-// A: (B, T, T/32) words, cand: (B, T/32), out: (B,) uint32, list: room for
-// B * T * (T + 1) / 2 uint32 items, counters: two uint32, all device
-// pointers, out and counters zeroed by the caller; 1 <= l <= T, B < 2^16,
-// T = 32 * W with 1 <= W <= 8.  Launches the branch and item passes on `stream`
-// and returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
-// does not take, or the error of the item pass's shared-memory opt-in).
+// A: (B, T, T/32) words, cand: (B, T/32), out: (B,) uint32, counters: two
+// uint32, all device pointers, out and counters zeroed by the caller;
+// 1 <= l <= T, B < 2^16, T a multiple of 32.  At T <= 256 list has room
+// for B * T * (T + 1) / 2 uint32 items and scratch is unused (null, 0); at
+// T > 256 (the wide path) list has room for as many uint64 items and
+// scratch holds scratch_words uint32 words, at least 8 slots of
+// dfs_slot_words(T, l) (one slot a warp of the item pass).  Launches the
+// branch and item passes on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for an argument it does not take, or the error of
+// the item pass's shared-memory opt-in).
 extern "C" int clique_count_tiles_launch(const void* A, const void* cand, void* out, void* list,
-                                         void* counters, int B, int T, int l, void* stream) {
+                                         void* counters, void* scratch, long long scratch_words,
+                                         int B, int T, int l, void* stream) {
   using repro_torch::ItemOut;
-  return repro_torch::count_launch<ItemOut::kTile>(A, cand, out, nullptr, list, counters, B, T,
-                                                   l, stream);
+  return repro_torch::count_launch<ItemOut::kTile>(A, cand, out, nullptr, list, counters,
+                                                   scratch, scratch_words, B, T, l, stream);
 }
 
 // The count per first-level branch: per_v (B, T) uint64, zeroed by the
 // caller, gets at [b, v] the l-cliques of tile b whose lowest vertex is v.
 // Otherwise as above.
 extern "C" int clique_count_items_launch(const void* A, const void* cand, void* per_v,
-                                         void* list, void* counters, int B, int T, int l,
+                                         void* list, void* counters, void* scratch,
+                                         long long scratch_words, int B, int T, int l,
                                          void* stream) {
   using repro_torch::ItemOut;
-  return repro_torch::count_launch<ItemOut::kBranch>(A, cand, nullptr, per_v, list, counters, B,
-                                                     T, l, stream);
+  return repro_torch::count_launch<ItemOut::kBranch>(A, cand, nullptr, per_v, list, counters,
+                                                     scratch, scratch_words, B, T, l, stream);
+}
+
+// Words of one warp's scratch slot of the wide path at tile width T and
+// clique size l (the wrappers size the scratch by it).
+extern "C" long long dfs_slot_words(int T, int l) {
+  return repro_torch::wide::slot_words(T, l);
 }

@@ -45,9 +45,17 @@
 //   first version of this design had, took 2.7x the warp-per-tile kernel's
 //   time on an overflowed k = 6 T = 64 batch: its first branches wrote most
 //   of each tile's 16,384 rows with W = 2 lanes.
+// Tiles wider than 256 (W > 8) take, through the same entry point, the same
+//   four passes on the wide path of dfs_wide.cuh (a warp an item, W a
+//   runtime argument, the stack, the close's set and the prefix in per-warp
+//   global scratch).  A close deals its set by bit, lane j taking the
+//   vertices 32 w + j, one word at a time, so its rows stay in order.  The
+//   per-item count buffer is still dense (B, T, T) uint64 (32 MB a tile at
+//   T = 2048); the wrapper splits a batch to keep it within PER_X_BYTES.
 #include <cuda_runtime.h>
 
 #include "dfs_items.cuh"
+#include "dfs_wide.cuh"
 
 namespace repro_torch {
 namespace {
@@ -298,33 +306,187 @@ cudaError_t launch_list(const uint32_t* A, const uint32_t* cand, int* rows, uint
                            counters, counters + 2, per_x, rows, l, capacity);
 }
 
+// ---- the wide path (W > 8) ------------------------------------------------
+
+// Two levels left: every edge (u, w), u < w, of the set s (W words every
+// lane may read) behind the l - 2 prefix vertices, in row-major order, from
+// rank `total`: one word of s at a time, lane j taking its vertex 32 w + j,
+// a warp scan giving each lane its first rank.  Returns the rank after its
+// rows (or a rank >= capacity once it is full).
+__device__ __forceinline__ unsigned long long emit_edges_wide(const uint32_t* __restrict__ At,
+                                                              const uint32_t* s, const int* pf,
+                                                              const Rows& out,
+                                                              unsigned long long total, int W,
+                                                              int lane) {
+  const unsigned long long cap = static_cast<unsigned long long>(out.capacity);
+  for (int wu = 0; wu < W && total < cap; ++wu) {
+    const uint32_t sw = s[wu];
+    if (!sw) continue;  // warp-uniform
+    const int u = (wu << 5) + lane;
+    const uint32_t* Au = At + static_cast<size_t>(u) * W;
+    uint32_t c = 0;
+    if ((sw >> lane) & 1u)
+      for (int w = wu; w < W; ++w) c += __popc(__ldg(Au + w) & s[w] & gt_word(u, w));
+    const uint32_t incl = wide::warp_scan(c, lane);
+    if (c) {
+      unsigned long long dest = total + (incl - c);
+      for (int w = wu; w < W && dest < cap; ++w) {
+        uint32_t nb = __ldg(Au + w) & s[w] & gt_word(u, w);
+        for (; nb && dest < cap; nb &= nb - 1u)
+          put_row(out, dest++, pf, 1, out.l - 2, u, (w << 5) + __ffs(nb) - 1);
+      }
+    }
+    total += __shfl_sync(kFullMask, incl, 31);
+  }
+  return total;
+}
+
+// Writes the rows of an item from rank `first` until they end or reach
+// capacity: the prefix pf[0 .. l - k) followed by each k-clique of the set at
+// stack[0 .. W) (each lane's words written by that lane), in the per-tile
+// DFS's order.  Stack level d sits at stack + d * W, `close` is the set an
+// edge close reads.
+__device__ __forceinline__ void emit_cliques_wide(const uint32_t* __restrict__ At,
+                                                  uint32_t* stack, uint32_t* close, int* pf,
+                                                  int k, const Rows& out,
+                                                  unsigned long long first, int W, int lane) {
+  const unsigned long long cap = static_cast<unsigned long long>(out.capacity);
+  if (k == 1) {  // the prefix and each vertex of t, ascending: 32 words a round
+    unsigned long long total = first;
+    for (int w0 = 0; w0 < W && total < cap; w0 += 32) {
+      const int w = w0 + lane;  // this lane's own word
+      uint32_t m = w < W ? stack[w] : 0u;
+      const uint32_t c = __popc(m);
+      const uint32_t incl = wide::warp_scan(c, lane);
+      unsigned long long dest = total + (incl - c);
+      for (; m && dest < cap; m &= m - 1u)
+        put_row(out, dest++, pf, 1, out.l - 1, (w << 5) + __ffs(m) - 1, 0);
+      total += __shfl_sync(kFullMask, incl, 31);
+    }
+    return;
+  }
+  __syncwarp();  // every lane wrote its words of level 0 and the prefix
+  if (k == 2) {
+    emit_edges_wide(At, stack, pf, out, first, W, lane);
+    return;
+  }
+  const int p = out.l - k;
+  unsigned long long total = first;
+  int depth = 0;
+  while (depth >= 0 && total < cap) {
+    uint32_t* todo = stack + static_cast<size_t>(depth) * W;
+    const int y = wide::take_lowest_wide(todo, W, lane);
+    if (y < 0) {  // frontier exhausted: pop
+      --depth;
+      continue;
+    }
+    const bool closing = depth == k - 3;  // two levels left
+    uint32_t* dst = closing ? close : todo + W;
+    const int nu = wide::and_row(dst, todo, At + static_cast<size_t>(y) * W, W, lane);
+    if (closing) {
+      if (nu >= 2) {
+        if (lane == 0) pf[p + depth] = y;
+        __syncwarp();
+        total = emit_edges_wide(At, close, pf, out, total, W, lane);
+        __syncwarp();  // every lane has read the set and prefix before they change
+      }
+    } else if (nu >= k - depth - 1) {  // push
+      if (lane == 0) pf[p + depth] = y;
+      ++depth;
+    }
+  }
+}
+
+// The emit pass of the wide path: a warp an item with rows below capacity.
+__global__ void __launch_bounds__(wide::kThreads)
+list_emit_wide(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
+               const unsigned long long* __restrict__ list, const unsigned* __restrict__ n_list,
+               unsigned* __restrict__ counter, const unsigned long long* __restrict__ firsts,
+               int* __restrict__ rows, uint32_t* scratch, long long slot, int T, int l,
+               int capacity) {
+  const int W = T >> 5;
+  const int lane = threadIdx.x & 31;
+  uint32_t* stack = wide::warp_slot(scratch, slot);
+  uint32_t* close = stack + static_cast<size_t>(l > 4 ? l - 4 : 1) * W;
+  int* pf = reinterpret_cast<int*>(close + W);
+  const unsigned n = *n_list;
+  for (unsigned i = wide::next_item(counter, lane); i < n; i = wide::next_item(counter, lane)) {
+    int b, v, x;
+    wide::unpack(list[i], &b, &v, &x);
+    const size_t at = (static_cast<size_t>(b) * T + v) * T + x;
+    const unsigned long long first = firsts[at];
+    // l <= 2: one row; else the next entry of the tile's scan (x > v)
+    const unsigned long long count = l <= 2 ? 1ull : firsts[at + 1] - first;
+    if (count == 0ull || first >= static_cast<unsigned long long>(capacity)) continue;
+    const uint32_t* At = A + static_cast<size_t>(b) * T * W;
+    const Rows out{rows + static_cast<size_t>(b) * capacity * l, capacity, l};
+    if (lane == 0) {
+      pf[0] = v;
+      if (l >= 2) pf[1] = x;
+    }
+    __syncwarp();
+    if (l <= 2) {
+      if (lane == 0) put_row(out, first, pf, 1, l, 0, 0);
+    } else {
+      wide::second_branch_wide(stack, At, cand + static_cast<size_t>(b) * W, v, x, W, lane);
+      emit_cliques_wide(At, stack, close, pf, l - 2, out, first, W, lane);
+    }
+    __syncwarp();  // the prefix is read before the next item writes it
+  }
+}
+
+void launch_list_wide(const uint32_t* A, const uint32_t* cand, int* rows, uint32_t* count,
+                      uint32_t* overflow, unsigned long long* per_x, unsigned long long* list,
+                      unsigned* counters, uint32_t* scratch, long long slots, int B, int T,
+                      int l, int capacity, cudaStream_t stream) {
+  wide::launch_items_wide<ItemOut::kItem>(A, cand, list, counters, nullptr, per_x, scratch,
+                                          slots, B, T, l, stream);
+  list_scan_kernel<<<B, kScanThreads, 0, stream>>>(per_x, rows, count, overflow, T, l,
+                                                   capacity);
+  list_emit_wide<<<wide::wide_grid(list_emit_wide, slots), wide::kThreads, 0, stream>>>(
+      A, cand, list, counters, counters + 2, per_x, rows, scratch, wide::slot_words(T, l), T, l,
+      capacity);
+}
+
 }  // namespace
 }  // namespace repro_torch
 
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B, capacity, l) int32,
 // count and overflow: (B,) uint32, per_x: B * T * T uint64 and counters:
-// three uint32, both zeroed by the caller, list: room for B * T * (T + 1) / 2
-// uint32 items, all device pointers; 1 <= l <= T, capacity >= 1,
-// B < 2^16, T = 32 * W with 1 <= W <= 8.  Launches four kernels on `stream` and
-// returns cudaGetLastError() (cudaErrorInvalidValue for an argument it
-// does not take, or the error of a shared-memory opt-in).
+// three uint32, both zeroed by the caller, all device pointers;
+// 1 <= l <= T, capacity >= 1, B < 2^16, T a multiple of 32.  At T <= 256
+// list has room for B * T * (T + 1) / 2 uint32 items and scratch is unused
+// (null, 0); at T > 256 (the wide path) list has room for as many uint64
+// items and scratch holds scratch_words uint32 words, at least 8 slots of
+// dfs_slot_words(T, l) (one slot a warp of the item and emit passes).
+// Launches four kernels on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for an argument it does not take, or the error of
+// a shared-memory opt-in).
 extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* out,
                                         void* count, void* overflow, void* per_x, void* list,
-                                        void* counters, int B, int T, int l, int capacity,
-                                        void* stream) {
+                                        void* counters, void* scratch, long long scratch_words,
+                                        int B, int T, int l, int capacity, void* stream) {
   using namespace repro_torch;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (l < 1 || l > T || capacity < 1 || B >= (1 << 16))
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const uint32_t*>(A);
   const auto* c = static_cast<const uint32_t*>(cand);
   auto* o = static_cast<int*>(out);
   auto* n = static_cast<uint32_t*>(count);
   auto* f = static_cast<uint32_t*>(overflow);
   auto* px = static_cast<unsigned long long*>(per_x);
-  auto* li = static_cast<uint32_t*>(list);
   auto* ctr = static_cast<unsigned*>(counters);
   auto st = static_cast<cudaStream_t>(stream);
+  if (T > 256) {  // the wide path: W a runtime argument
+    if (capacity < 1 || !wide::wide_args_ok(B, T, l, scratch_words))
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_list_wide(a, c, o, n, f, px, static_cast<unsigned long long*>(list), ctr,
+                     static_cast<uint32_t*>(scratch), scratch_words / wide::slot_words(T, l), B,
+                     T, l, capacity, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (l < 1 || l > T || capacity < 1 || B >= (1 << 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* li = static_cast<uint32_t*>(list);
   cudaError_t err;
   switch (T) {
     case 32: err = launch_list<1>(a, c, o, n, f, px, li, ctr, B, l, capacity, st); break;

@@ -38,6 +38,15 @@
 //   The first port's design (a 256-thread block per tile, thread v walking
 //   row v) was slower than both at every bin on the H100 (PERF.md) and is
 //   gone.
+//   - tri_wide, T > 256 (W > 8): tri_block_rows' block of 32 warps per
+//     tile and its split of the work, with W a runtime argument and no
+//     shared copy of the rows (T * W * 4 = T^2 / 8 bytes: 128 KB at
+//     T = 1024, past the card's 227 KB from T = 1376).  A warp reads its
+//     row v (one broadcast address a word) and lane L the rows u it takes
+//     through L1/L2, and masks them with cand (read-only path) on the fly:
+//     U_v & U_u = A_v & A_u & cand & gt(u), since gt(u) lies inside gt(v).
+//     One instantiation serves every W > 8, so the build does not grow
+//     with the widths.
 #include <cuda_runtime.h>
 
 #include "tile_bits.cuh"
@@ -162,6 +171,46 @@ tri_block_rows(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand
   }
 }
 
+// tri_wide: one block of kBlockWarps warps per tile, W > 8 words a row.
+__global__ void __launch_bounds__(kBlockWarps * 32)
+tri_wide(const uint32_t* __restrict__ A, const uint32_t* __restrict__ cand,
+         long long* __restrict__ out, int T) {
+  __shared__ uint32_t warp_sums[kBlockWarps];
+  const int W = T >> 5;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t* At = A + static_cast<size_t>(b) * T * W;
+  const uint32_t* cb = cand + static_cast<size_t>(b) * W;
+  int any = 0;
+  for (int w = threadIdx.x; w < W; w += kBlockWarps * 32) any |= __ldg(cb + w) != 0u;
+  if (!__syncthreads_or(any)) {  // block-uniform: nothing in the tile
+    if (threadIdx.x == 0) store_count(out, b, 0u);
+    return;
+  }
+  uint32_t acc = 0;
+  for (int v = warp; v < T; v += kBlockWarps) {
+    if (!((__ldg(cb + (v >> 5)) >> (v & 31)) & 1u)) continue;  // warp-uniform
+    const uint32_t* Av = At + static_cast<size_t>(v) * W;
+    for (int wu = v >> 5; wu < W; ++wu) {
+      const uint32_t uv = __ldg(Av + wu) & __ldg(cb + wu) & gt_word(v, wu);
+      if (!((uv >> lane) & 1u)) continue;
+      const int u = 32 * wu + lane;
+      const uint32_t* Au = At + static_cast<size_t>(u) * W;
+      for (int w = wu; w < W; ++w)
+        acc += __popc(__ldg(Av + w) & __ldg(Au + w) & __ldg(cb + w) & gt_word(u, w));
+    }
+  }
+  acc = __reduce_add_sync(kFullMask, acc);
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t s = lane < kBlockWarps ? warp_sums[lane] : 0u;
+    s = __reduce_add_sync(kFullMask, s);
+    if (lane == 0) store_count(out, b, s);
+  }
+}
+
 template <int W>
 int launch(const uint32_t* A, const uint32_t* cand, long long* out, int B, cudaStream_t stream) {
   if constexpr (W <= 2) {
@@ -177,8 +226,9 @@ int launch(const uint32_t* A, const uint32_t* cand, long long* out, int B, cudaS
 }  // namespace repro_torch
 
 // A: (B, T, T/32) words, cand: (B, T/32), out: (B,) int64, all device
-// pointers; T = 32 * W with 1 <= W <= 8.  Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for another T).
+// pointers; T a positive multiple of 32 (W = 1..8 by their own
+// instantiations, wider tiles by tri_wide).  Launches on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for another T).
 extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void* out, int B,
                                            int T, void* stream) {
   using namespace repro_torch;
@@ -196,6 +246,9 @@ extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void
     case 192: return launch<6>(a, c, o, B, st);
     case 224: return launch<7>(a, c, o, B, st);
     case 256: return launch<8>(a, c, o, B, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (T < 256 || T % 32) return static_cast<int>(cudaErrorInvalidValue);
+      tri_wide<<<B, kBlockWarps * 32, 0, st>>>(a, c, o, T);
+      return static_cast<int>(cudaGetLastError());
   }
 }

@@ -20,8 +20,9 @@ from repro_torch.core.bitops import pack_bits
 from repro_torch.data import graphs
 from repro_torch.kernels import (clique_count, clique_list, intersect, ops,
                                  triangle_mm)
-from torch_cases import (big_clique_tiles, planted_clique_tiles,
-                         structured_triangle_tiles)
+from torch_cases import (WIDE_WIDTHS, big_clique_tiles, planted_clique_tiles,
+                         structured_triangle_tiles, turan_graph_edges,
+                         wide_tiles)
 
 pytestmark = pytest.mark.gpu
 
@@ -670,7 +671,9 @@ def test_kernels_match_plain_at_new_widths(cuda, T):
 def test_row_alignment_at_new_widths_on_card(cuda):
     """W = 3 rows load word by word, so a view 4 bytes off a 16-byte
     boundary runs and equals the aligned tiles; W = 6 rows load by 8
-    bytes, so the same offset raises before a launch, as T > 256 does."""
+    bytes, so the same offset raises before a launch.  T = 288 runs on
+    the card and equals the plain version (it raised before ROADMAP C4
+    was closed)."""
     def offset(x):
         odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
         return odd.view(x.shape).copy_(x)
@@ -699,10 +702,16 @@ def test_row_alignment_at_new_widths_on_card(cuda):
                  lambda: intersect.edge_candidates(odd6, pairs)):
         with pytest.raises(ValueError, match="8-byte boundary"):
             call()
-    A9 = torch.zeros((2, 288, 9), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="T <= 256"):
-        clique_count.clique_count_tiles(A9, A9[:, 0].contiguous(), 4)
     assert ops.launch_counts() == before
+    # T = 288 (W = 9, rows 4 bytes apart past a 16-byte start) counts on
+    # the card as the plain version does (ROADMAP C4)
+    A9, c9 = (torch.from_numpy(x).view(torch.int32).to(cuda)
+              for x in big_clique_tiles(7, 3, 288, (8, 6, 7), noise=0.01))
+    for l in (3, 4):
+        got = ops.count_tiles(A9, c9, l)
+        assert torch.equal(got, clique_count.clique_count_tiles_torch(
+            A9, c9, l)) and int(got.max()) > 0
+    assert ops.launch_counts() != before
 
 
 @pytest.mark.parametrize("k", [5, 6, 7])
@@ -777,3 +786,189 @@ def test_backend_registry_on_card(cuda, tmp_path, monkeypatch):
         tune.clear_memory()
         tune.consume_events()
         ops.clear_autotune_cache()
+
+
+# ---------------------------------------------------------------------------
+# tiles wider than 256 (ROADMAP C4): the kernels' wide path
+# ---------------------------------------------------------------------------
+
+
+def _wide_pairs(T, B, device):
+    rng = np.random.default_rng(T)
+    a = rng.integers(0, T - 1, B)
+    return torch.from_numpy(np.stack([a, a + 1 + rng.integers(0, T - 1 - a)],
+                                     1).astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("T", WIDE_WIDTHS)
+def test_kernels_match_plain_on_wide_tiles(cuda, T):
+    """All four kernels (and the per-branch count) at W = 9, 16, 33 and 64
+    on planted cliques under noise, against their plain versions on the
+    card, byte for byte, each launch counted.  Lists at l = 3 stop at
+    T = 1056: the plain version unpacks a (T, T, T) mask a tile."""
+    A, cand = (torch.from_numpy(x).view(torch.int32).to(cuda)
+               for x in wide_tiles(T))
+    before = ops.launch_counts()
+    _assert_triangle_and_edge_match(A, cand, _wide_pairs(T, 4, cuda))
+    for l in (1, 2, 3, 4, 5):
+        caps = () if l == 3 and T > 1056 else (1, 7, 512)
+        want, _ = _assert_dfs_kernels_match(A, cand, l, caps=caps)
+        assert int(want.min()) > 0, (T, l)
+    after = ops.launch_counts()
+    assert after["triangle_count_tiles"] == before["triangle_count_tiles"] + 1
+    assert after["edge_candidates"] == before["edge_candidates"] + 1
+    assert after["clique_count_tiles"] == before["clique_count_tiles"] + 5
+    assert after["clique_list_tiles"] == before["clique_list_tiles"] + 15 - (
+        3 if T > 1056 else 0)
+
+
+def test_wide_launch_splits_and_large_l(cuda):
+    """A wide batch past one launch's item budget goes in several
+    launches; l = 40 on a 44-clique at T = 288 runs the wide DFS 36 levels
+    deep (C(44, 40) = 135,751 rows), against the plain version."""
+    from math import comb
+    T = 1056
+    B = clique_count.count_launch_tiles(T) + 3
+    A, cand = (torch.from_numpy(x).view(torch.int32).to(cuda)
+               for x in wide_tiles(T, B=B, seed=5))
+    before = ops.launch_counts()["clique_count_tiles"]
+    assert torch.equal(clique_count.clique_count_tiles(A, cand, 4),
+                       clique_count.clique_count_tiles_torch(A, cand, 4))
+    assert ops.launch_counts()["clique_count_tiles"] == before + 2
+    A, cand, members = planted_clique_tiles(3, 288, (44, 41))
+    A, cand = (torch.from_numpy(x).view(torch.int32).to(cuda)
+               for x in (A, cand))
+    got = clique_count.clique_count_tiles(A, cand, 40)
+    assert got.tolist() == [comb(44, 40), comb(41, 40)]
+    buf, cnt, ovf = clique_list.clique_list_tiles(A, cand, 40, comb(44, 40))
+    assert cnt.tolist() == got.tolist() and ovf.tolist() == [0, 0]
+    from itertools import combinations
+    rows = np.asarray(list(combinations(members[1], 40)), dtype=np.int32)
+    assert np.array_equal(buf[1, :len(rows)].cpu().numpy(), rows)
+    assert int(buf[1, len(rows):].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("lanes", [["cuda:0"], ["cuda:0", "cuda:0"]])
+def test_engines_with_a_bin_above_256_on_card(cuda, lanes):
+    """The Turan graph of 88 parts of 3 packs its widest tiles (258
+    vertices, 3-plexes the router leaves to the kernel) at T = 512 under
+    bins (32, ..., 512): the 5-clique count equals C(88, 5) * 3^5 and the
+    3-clique rows are every triangle once, on one lane and two."""
+    from math import comb
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import from_edges
+    g = from_edges(*turan_graph_edges(88, 3))
+    bins = (32, 64, 128, 256, 512)
+    ops.reset_counts()
+    res = engine_torch.count(g, 5, bins=bins, devices=lanes)
+    assert res.count == comb(88, 5) * 3 ** 5
+    assert ops.launch_counts()["triangle_count_tiles"] > 0
+    assert any(b.T == 512 for b in pipeline.stream_batches(g, 5, bins=bins)
+               if isinstance(b, pipeline.TileBatch))
+    sink = listing.ArraySink(3)
+    listing.stream_cliques(g, 3, sink, bins=bins, devices=lanes)
+    rows = sink.result()
+    assert rows.shape == (comb(88, 3) * 27, 3)
+    parts = rows // 3
+    assert (parts[:, 0] != parts[:, 1]).all() and \
+        (parts[:, 1] != parts[:, 2]).all() and \
+        (parts[:, 0] != parts[:, 2]).all()
+    assert len(np.unique(np.sort(rows, 1), axis=0)) == len(rows)
+    assert sum(ops.plain_counts().values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# dynamic graphs (repro_torch.delta) and the serving tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _delta_batches(g, n_batches=3, seed=11):
+    """Seeded batches of about 0.5 % churn: inserts of random pairs and
+    deletes of present edges."""
+    rng = np.random.default_rng(seed)
+    n_pairs = max(2, g.m // 200)
+    out = []
+    for _ in range(n_batches):
+        ins = rng.integers(0, g.n, (n_pairs, 2))
+        dele = g.edges[rng.choice(g.m, n_pairs, replace=False)]
+        out.append((ins, dele))
+    return out
+
+
+@pytest.mark.parametrize("lanes", [["cuda:0"], ["cuda:0", "cuda:0"]])
+def test_delta_on_card_matches_cpu(cuda, lanes):
+    """A PlanIndex on one and two lanes of the card and one on the CPU take
+    the same batches: every per-batch and composed delta is byte-equal,
+    the count probe agrees, and the card's reads ran the kernels only."""
+    from repro_torch.delta import PlanIndex
+    from repro_torch.delta.query import delta_net_count
+    g = graphs.rmat_graph(9, 16, seed=7)
+    card = PlanIndex(g, devices=lanes)
+    cpu = PlanIndex(g, device="cpu")
+    ops.reset_counts()
+    for ins, dele in _delta_batches(g):
+        card.apply_batch(insert=ins, delete=dele)
+        cpu.apply_batch(insert=ins, delete=dele)
+        rec, crec = card._records[-1], cpu._records[-1]
+        for k in (4, 5):
+            d = rec.delta(k, card.order, **card.query)
+            assert d.gained.tobytes() == crec.delta(
+                k, cpu.order, **cpu.query).gained.tobytes()
+            net = delta_net_count(rec.old_plan, rec.new_plan, rec.info, k,
+                                  engine_kwargs={"devices": lanes})
+            assert net[2] == d.net
+    for k in (4, 5):
+        for since in (0, 1):
+            a, b = card.delta(k, since), cpu.delta(k, since)
+            assert a.gained.tobytes() == b.gained.tobytes()
+            assert a.lost.tobytes() == b.lost.tobytes()
+    launches = ops.launch_counts()
+    assert launches["clique_list_tiles"] > 0
+    assert launches["triangle_count_tiles"] > 0
+
+
+@pytest.mark.parametrize("lanes", [["cuda:0"], ["cuda:0", "cuda:0"]])
+def test_service_on_card_matches_cpu(cuda, lanes):
+    """One CliqueService on one and two lanes of the card and one on a CPU
+    lane take the same paused-then-resumed burst, an update and a delta
+    read: every result is byte-identical, and the card's fused batches
+    ran the kernels."""
+    from repro_torch.serve import CliqueService
+    g = graphs.rmat_graph(10, 16, seed=7)
+    h = graphs.rmat_graph(8, 16, seed=7)
+    specs = [("g", 5, "count", {}), ("g", 6, "count", {}),
+             ("h", 7, "count", {}), ("g", 5, "list", {}),
+             ("h", 5, "list", dict(vertex_filter=3)),
+             ("g", 4, "list", dict(vertex_filter=9, max_out=50))]
+    results = {}
+    for tag, devices in (("card", lanes), ("cpu", ["cpu"])):
+        svc = CliqueService(devices=devices, chunk_tiles=32, fuse_rows=128)
+        svc.register_graph("g", g)
+        svc.register_graph("h", h)
+        try:
+            if tag == "card":
+                ops.reset_counts()
+            svc.pause()
+            tickets = [svc.submit(n, k, m, **kw) for n, k, m, kw in specs]
+            svc.resume()
+            out = [t.result(600) for t in tickets]
+            ins, dele = _delta_batches(g, 1, seed=5)[0]
+            svc.update_graph("g", insert=ins, delete=dele)
+            out.append(svc.submit("g", 5, "delta", since_version=0)
+                       .result(600))
+            results[tag] = out
+            if tag == "card":
+                assert svc.stats.cross_request_batches > 0
+                launches = ops.launch_counts()
+                assert launches["clique_count_tiles"] > 0
+                assert launches["clique_list_tiles"] > 0
+                assert sum(ops.plain_counts().values()) == 0
+        finally:
+            svc.close()
+    for got, want in zip(results["card"], results["cpu"]):
+        assert got.kind == want.kind
+        if got.kind == "count":
+            assert got.count == want.count
+        else:
+            assert got.rows.tobytes() == want.rows.tobytes()
+    assert results["card"][-1].rows.shape[0] > 0

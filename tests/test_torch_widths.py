@@ -85,8 +85,9 @@ def test_plain_kernels_match_reference_at_every_width(W):
 
 
 def test_plain_versions_take_tiles_wider_than_256():
-    """T = 288 has no bin in either policy and no CUDA kernel (ROADMAP
-    C4), but the plain versions count such tiles as the reference does."""
+    """T = 288 has no bin in either policy; the plain versions count such
+    tiles as the reference does (the CUDA kernels' wide path is held
+    against them on the card, ROADMAP C4)."""
     A_u32, cand_u32 = big_clique_tiles(7, 3, 288, (8, 6, 7), noise=0.01)
     A, cand = port(A_u32, cand_u32)
     for l in (3, 4):
@@ -110,6 +111,24 @@ def test_row_alignment_and_tile_checks():
             common.check_adjacency(torch.zeros(shape, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("T", [288, 2048])
+def test_tile_checks_take_tiles_wider_than_256(T):
+    """No width cap is left in the checks (ROADMAP C4): T = 288 and 2048
+    pass, with the same alignment rule (the largest power of two that
+    divides 4 W, at most 16) and every other check kept."""
+    W = T // 32
+    A = torch.zeros((2, T, W), dtype=torch.int32)
+    assert common.check_tiles(A, torch.zeros((2, W), dtype=torch.int32)) \
+        == (2, T, W)
+    assert common.row_alignment(W) == {9: 4, 64: 16}[W]
+    with pytest.raises(ValueError):
+        common.check_adjacency(A[:, :, 1:].contiguous())
+    with pytest.raises(ValueError):
+        common.check_adjacency(A.transpose(0, 1))
+    with pytest.raises(TypeError):
+        common.check_adjacency(A.to(torch.int64))
+
+
 GRAPH = dict(scale=8, edge_factor=16, seed=7)
 #: 5- and 6-cliques of rmat_graph(8, 16, seed=7), from the reference
 PINNED = {5: 84_164, 6: 148_460}
@@ -118,6 +137,31 @@ PINNED = {5: 84_164, 6: 148_460}
 @pytest.fixture(scope="module")
 def rmat8():
     return (graphs.rmat_graph(**GRAPH), jgraphs.rmat_graph(**GRAPH))
+
+
+def test_engines_count_and_list_with_a_bin_above_256():
+    """Bins (32, 288) on a planted 36-clique: the three tiles of
+    planted_cliques(80, 1, 36, p_noise=0.05, seed=3) wider than 32 pack at
+    T = 288 (W = 9), where the kernels take their wide path on the card;
+    on the CPU the plain versions give the reference's counts (377,004
+    5-cliques, 1,947,794 6-cliques) and its rows in its order (ROADMAP
+    C4)."""
+    from repro_torch.core import pipeline
+    spec = dict(n=80, n_cliques=1, clique_size=36, p_noise=0.05, seed=3)
+    g, jg = graphs.planted_cliques(**spec), jgraphs.planted_cliques(**spec)
+    bins = (32, 288)
+    assert sum(b.B for b in pipeline.stream_batches(g, 5, bins=bins)
+               if isinstance(b, pipeline.TileBatch) and b.T == 288) == 3
+    for k, want in ((5, 377_004), (6, 1_947_794)):
+        got = engine_torch.count(g, k, bins=bins, device="cpu")
+        assert got.count == want == engine_jax.count(
+            jg, k, bins=bins, backend="lax").count
+    sink = listing.ArraySink(5)
+    listing.stream_cliques(g, 5, sink, bins=bins, device="cpu")
+    jsink = jlisting.ArraySink(5)
+    jlisting.stream_cliques(jg, 5, jsink, bins=bins, backend="lax")
+    assert sink.result().shape == (377_004, 5)
+    assert sink.result().tobytes() == jsink.result().tobytes()
 
 
 @pytest.mark.parametrize("ladder", ["96,256", "mult32"])

@@ -62,3 +62,32 @@ def planted_clique_tiles(seed, T, sizes):
     members = [np.nonzero(d)[0].tolist() for d in degree]
     assert [len(m) for m in members] == [s if s > 1 else 0 for s in sizes]
     return A, cand, members
+
+
+#: tile widths above 256 that the kernels' wide path takes: W = 9, 16, 33
+#: and 64 (one word past a warp's 32 lanes at W = 33, two words a lane at
+#: W = 64)
+WIDE_WIDTHS = (288, 512, 1056, 2048)
+
+
+def wide_tiles(T, B=4, seed=None):
+    """(B, T, W) tiles at a width above 256: planted cliques of 8 to 11
+    vertices scattered over all T slots, four spare cand vertices and about
+    two noise edges a vertex, so every word of a row and of cand can carry
+    bits and each tile's counts stay far below 2**32 (C(11, 5) = 462
+    5-cliques in the largest clique).  Returns numpy words."""
+    return big_clique_tiles(T if seed is None else seed, B, T,
+                            (11, 9, 10, 8), noise=2.0 / T, spare=4)
+
+
+def turan_graph_edges(parts, size):
+    """Edges of the complete multipartite graph of ``parts`` parts of
+    ``size`` vertices (vertex v in part v // size): every vertex misses
+    only its ``size - 1`` part-mates, so a tile's cand-induced subgraph is
+    a (size + 1)-plex and, for size >= 2, no 2-plex that the router
+    closes.  It holds C(parts, k) * size**k k-cliques.  Returns
+    (n, (m, 2) int64 edges)."""
+    n = parts * size
+    ii, jj = np.triu_indices(n, 1)
+    keep = ii // size != jj // size
+    return n, np.stack([ii[keep], jj[keep]], 1).astype(np.int64)
