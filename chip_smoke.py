@@ -20,7 +20,7 @@ kernel counters set to 0 just before it and read just after:
 * edge-branch candidates -- ``repro_torch.kernels.ops.edge_candidates``
   -- on every packed batch of the k = 5 listing, one edge of each tile;
 * multi-lane dispatch (``[dispatch]``, ``repro_torch.runtime.dispatch``)
-  on the warm plans: counting k = 7 on the scale-15 graph on one lane and
+  on the warm plans: counting k = 7 on the scale-13 graph on one lane and
   on two lanes (two CUDA streams) of the card, k = 5 on the scale-12 graph
   split by rows over two lanes (``mesh=``) and k = 6 by offline LPT
   (``dispatch_scheduled``) over two lanes, and listing k = 5 on the
@@ -29,7 +29,10 @@ kernel counters set to 0 just before it and read just after:
   digests;
 
 then runs the command-line launcher with ``--verify``, counting (through
-the dispatcher, its default) and listing, and finally:
+the dispatcher, its default) and listing, and finally the phases below.
+From ``[dispatch]`` on, the queries that [main] runs on the scale-15 graph
+run on the same generator at scale 13 (n = 8,192, m = 101,992), so that
+the whole smoke stays inside its time limit:
 
 * observability (``[obs]``, ``repro_torch.obs``): the one-lane k = 7
   count traced (a valid Chrome trace through every stage span, traced
@@ -52,7 +55,7 @@ the dispatcher, its default) and listing, and finally:
   main-path batches of a ``mult32`` stream (counting at k = 5 and 7 on
   the scale-15 graph, listing at k = 6 on the scale-12 graph), each
   against its plain version and timed beside the same tiles packed at
-  the next power of two, and the k = 7 count of the scale-15 graph under
+  the next power of two, and the k = 7 count of the scale-13 graph under
   the ``mult32`` ladder on the warm plan;
 * plan persistence (``[persist]``): ``save_plan`` of the scale-15 plan,
   a fresh launcher process that loads it with ``--plan-cache`` and counts
@@ -73,15 +76,35 @@ the dispatcher, its default) and listing, and finally:
   the card through three repair batches and one past the churn
   threshold, each checked against a fresh plan, with its k = 5 delta
   exact by three counts and by its rows and its time split by the trace,
-  the composed delta, and one 0.2 % batch on the scale-15 graph with its
+  the composed delta, and one 0.2 % batch on the scale-13 graph with its
   net count against the pinned one;
 * the serving tier (``[serve]``): a ``CliqueService`` on the card with
-  both RMAT graphs registered, a burst of 8 client threads (counts and
-  lists, filtered and truncated) on one lane, its scale-12 requests on
-  two lanes (under the profiler), an update and a delta read, a metrics
-  scrape, the scale-12 requests under the chaos plan (each exact or
-  failed alone, then a clean request exact), and the same requests one
-  at a time as the serial yardstick.
+  the scale-13 and scale-12 graphs registered, a burst of 8 client
+  threads (counts and lists, filtered and truncated) on one lane, its
+  scale-12 requests on two lanes (under the profiler), an update and a
+  delta read, a metrics scrape, the scale-12 requests under the chaos
+  plan (each exact or failed alone, then a clean request exact), and the
+  same requests one at a time as the serial yardstick;
+* the paper baseline (``[baseline]``): VBBkC (``vbbkc.count``, DDegCol
+  and DDegCol+, a host recursion as in the reference) at k = 5 and 6 on
+  the same generator at scale 11, each equal to the card's
+  ``ebbkc.count`` and the pinned count, Lemma 4.1 by ``tau_delta_gap``,
+  and ``examples/quickstart_torch.py`` in a fresh process on the card;
+* the on-device truss (``[truss]``): ``truss_decomposition_torch`` on the
+  scale-12 graph on the card, trussness and tau equal to the host
+  peeler's, both times;
+* the model substrate's serving path (``[lm serve]``):
+  ``repro_torch.launch.serve`` at granite-3-8b's published widths (40
+  layers, d = 4,096, f32 params, bf16 compute) for 8 requests of 32
+  prompt tokens and 16 greedy tokens, prefill and one decode step against
+  ``forward`` and the bf16 prefill against an f32 ``forward``, each within
+  ``LM_ATOL``, three planted faults (a wrong position, another request's
+  cache, a lost cache entry) each beyond it, every id inside the padded
+  vocab, prefill and decode tok/s, peak memory and the device's busy share of
+  one run under the profiler; and the reduced granite-3-8b
+  and gemma3-27b configs (local windows) on the card against the port's
+  CPU run on the same params.  The LM and truss paths run none of the
+  four kernels (torch ops only, as the reference runs XLA ops there).
 
 Any failure raises and exits non-zero.
 
@@ -127,6 +150,15 @@ ROOT = Path(__file__).resolve().parent
 # with K = 5 and K = 7 (K = 7 takes about 5 minutes on a CPU).
 RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 15, 16, 7
 EXPECTED = {5: 1_342_399_771, 7: 126_451_960_147}
+
+# The phases after the main path ([dispatch], [obs], [widths], [delta],
+# [serve]) run their queries on the same generator at scale 13 (n = 8,192,
+# m = 101,992): a query there takes a few seconds where scale 15 takes
+# about 20, which keeps the whole smoke inside its time limit.  Counts
+# from the JAX reference package on a CPU, as above with scale 13 (42 s
+# for both).
+MID_SCALE = 13
+EXPECTED_MID = {5: 102_427_518, 7: 3_790_711_418}
 
 # Expected rows of listing rmat_graph(12, edge_factor=16, seed=7), hybrid
 # order, default geometry, from the JAX reference package on a CPU:
@@ -705,7 +737,7 @@ def batches_per_bin(plan, k: int):
             {T: int(per_T[i]) for i, T in enumerate(BINS)})
 
 
-def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
+def dispatch_phase(mg, mplan, plan, lg, lplan, list_runs,
                    queries) -> dict:
     """``[dispatch]``: the main path's queries through the multi-lane
     dispatcher, each with the kernel counters set to 0 just before it and
@@ -784,11 +816,11 @@ def dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
     # the two-lane query runs once, under the profiler, which also gives
     # the device's busy share; its wall carries the profiler's overhead
     for lanes, tag in ((one, "1 lane"), (two, "2 lanes")):
-        got = count(f"count k=7 rmat15 {tag}", g, plan, 7, lanes,
-                    main_runs[7]["wall_s"], profiled=lanes is two)
-        if got != EXPECTED[7]:
+        got = count(f"count k=7 rmat{MID_SCALE} {tag}", mg, mplan, 7, lanes,
+                    None, profiled=lanes is two)
+        if got != EXPECTED_MID[7]:
             fail(f"dispatch k=7 on {tag} counted {got}, expected "
-                 f"{EXPECTED[7]}")
+                 f"{EXPECTED_MID[7]}")
 
     # k = 5 on the scale-12 graph, each batch split by rows over two lanes
     stats, stage = Stats(), {}
@@ -864,7 +896,9 @@ def device_busy(name: str, query, tag: str = "[dispatch]") -> dict:
     set against the query's wall time.  The sum of the intervals over
     their union says how much the lanes' work overlapped, and the DFS
     count kernel's share of them (its branch and item passes) is the
-    query's count-kernel device time."""
+    query's count-kernel device time; ``top_kernels`` are the five device
+    names with the most summed time."""
+    import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -877,6 +911,9 @@ def device_busy(name: str, query, tag: str = "[dispatch]") -> dict:
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     dfs = [e.time_range.end - e.time_range.start for e in events
            if "branch_kernel" in e.name or "item_kernel" in e.name]
+    by_name = collections.Counter()
+    for e in events:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e6
     busy_us, total_us, end = 0.0, 0.0, float("-inf")
     for a, b in spans:
         total_us += b - a
@@ -887,7 +924,8 @@ def device_busy(name: str, query, tag: str = "[dispatch]") -> dict:
                busy_s=busy_us / 1e6, summed_s=total_us / 1e6,
                busy_share=busy_us / 1e6 / wall if spans else None,
                count_kernel_events=len(dfs),
-               count_kernel_s=sum(dfs) / 1e6)
+               count_kernel_s=sum(dfs) / 1e6,
+               top_kernels=by_name.most_common(5))
     if spans:
         share = out["busy_share"]
         log(f"{tag} device busy, {name} under the profiler: wall "
@@ -972,7 +1010,7 @@ def profiled_kernels(path, tags) -> dict:
     return dict(events=len(durs), device_s=sum(durs) / 1e6)
 
 
-def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
+def obs_phase(mg, mplan, lg, lplan, dispatch_runs, list_trace,
               queries) -> dict:
     """``[obs]``: the port's tracer, kernel attribution, metrics server and
     profiler capture on the main path.  The one-lane k = 7 query runs
@@ -1006,7 +1044,7 @@ def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
     trace.reset()
     try:
         t0 = time.perf_counter()
-        res = ebbkc.count(g, 7, plan=plan,
+        res = ebbkc.count(mg, 7, plan=mplan,
                           engine_kwargs=dict(devices=["cuda:0"]))
         wall = time.perf_counter() - t0
     finally:
@@ -1020,7 +1058,8 @@ def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
             if r["sig"].startswith("count[")]
     calls = sum(r["calls"] for r in recs)
     stages = trace.stage_durations(doc)
-    untraced = dispatch_runs["count k=7 rmat15 1 lane"]["wall_s"]
+    untraced = dispatch_runs[
+        f"count k=7 rmat{MID_SCALE} 1 lane"]["wall_s"]
     busy = dispatch_runs["device_busy"]
     out["count_k7"] = dict(
         count=res.count, wall_s=wall, untraced_wall_s=untraced,
@@ -1028,7 +1067,7 @@ def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
         stage_durations=stages, launches=launches, kernel_records=recs,
         count_kernel_device_s=busy["count_kernel_s"],
         count_kernel_events=busy["count_kernel_events"])
-    log(f"[obs] count k=7 rmat15 1 lane, traced: {res.count}, wall "
+    log(f"[obs] count k=7 rmat{MID_SCALE} 1 lane, traced: {res.count}, wall "
         f"{wall:.2f} s against {untraced:.2f} s untraced in this call "
         f"({100 * (wall / untraced - 1):+.1f}%), "
         f"{len(doc['traceEvents'])} events, dropped {dropped}")
@@ -1041,8 +1080,9 @@ def obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
     log(f"[obs]   DFS count kernel device time of a k=7 query (profiler, "
         f"[dispatch] device busy window): {busy['count_kernel_events']} "
         f"events, {busy['count_kernel_s']:.4f} s")
-    if res.count != EXPECTED[7]:
-        fail(f"obs: traced k=7 counted {res.count}, expected {EXPECTED[7]}")
+    if res.count != EXPECTED_MID[7]:
+        fail(f"obs: traced k=7 counted {res.count}, expected "
+             f"{EXPECTED_MID[7]}")
     missing = set(OBS_COUNT_SPANS) - names
     if missing:
         fail(f"obs: the traced k=7 query has no {sorted(missing)} span")
@@ -1359,14 +1399,15 @@ def widths_case(rows, errs, A, cand, tag, ls=(3, 5), list_l=None,
     return out
 
 
-def widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
+def widths_phase(plan, mg, mplan, lplan, rows, errs, ptxas, dispatch_runs,
                  queries) -> dict:
     """``[widths]``: the four kernels at T = 96, 160, 192 and 224 -- their
     ptxas report, seeded tiles, and the main-path batches of a ``mult32``
     stream (counting on rmat15, listing on rmat12) -- each against its
     plain version and timed beside the same tiles at the next power of
-    two; then the k = 7 count on rmat15 under the mult32 ladder on the
-    warm plan, exact, with its wall beside the pow2 wall of ``[main]``."""
+    two; then the k = 7 count on rmat13 under the mult32 ladder on the
+    warm plan, exact, with its wall beside the pow2 wall of the one-lane
+    query of ``[dispatch]``."""
     import numpy as np
     import torch
     from repro_torch.core import ebbkc
@@ -1404,41 +1445,51 @@ def widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
                 tag = f"mult32 list k=6 T={T}"
                 out["times"][tag] = widths_case(rows, errs, A, cand, tag,
                                                 ls=(), list_l=4)
-    # one mult32 query on the warm plan (the pow2 wall is [main]'s k = 7)
-    warm(g, plan)
+    # one mult32 query on the warm plan (the pow2 wall is the one-lane k = 7
+    # query of [dispatch], the default engine's lanes on one card)
+    pow2_wall = dispatch_runs[f"count k=7 rmat{MID_SCALE} 1 lane"]["wall_s"]
+    warm(mg, mplan)
     ops.reset_counts()
     t0 = time.perf_counter()
-    res = ebbkc.count(g, 7, engine_kwargs={"bins": MULT32})
+    res = ebbkc.count(mg, 7, engine_kwargs={"bins": MULT32})
     wall = time.perf_counter() - t0
     st = res.stats
     queries.append(("[widths] count k=7 mult32", st))
     launches, plain = ops.launch_counts(), ops.plain_counts()
-    log(f"[widths] k=7 rmat15 under mult32: count={res.count} wall="
-        f"{wall:.2f} s (pow2 in [main], with stage timing: "
-        f"{main_runs[7]['wall_s']:.2f} s) frontend={st.frontend_s:.2f} "
+    log(f"[widths] k=7 rmat{MID_SCALE} under mult32: count={res.count} "
+        f"wall={wall:.2f} s (pow2, one lane in [dispatch]: "
+        f"{pow2_wall:.2f} s) frontend={st.frontend_s:.2f} "
         f"worker-s ({st.pack_workers} workers, queue_occ="
         f"{st.pack_queue_occupancy:.2f}) tiles={res.tiles} plan cache hit "
         f"{st.plan_cache_hit} launches {launches}")
-    if res.count != EXPECTED[7]:
-        fail(f"k=7 under mult32 counted {res.count}, expected {EXPECTED[7]}")
+    if res.count != EXPECTED_MID[7]:
+        fail(f"k=7 under mult32 counted {res.count}, expected "
+             f"{EXPECTED_MID[7]}")
     if not (launches["clique_count_tiles"] and st.plan_cache_hit) \
             or sum(plain.values()):
         fail(f"k=7 under mult32: launches {launches}, plain calls {plain}, "
              f"plan cache hit {st.plan_cache_hit}")
     out["k7"] = dict(count=res.count, mult32_wall_s=wall,
-                     main_pow2_wall_s=main_runs[7]["wall_s"])
+                     pow2_wall_s=pow2_wall)
     return out
 
 
-def run_cli(argv, env_extra=None, timeout=900):
-    """``python -m repro_torch.launch.clique ARGV`` in a fresh process
-    (``src/`` on its path, no tune cache or fault plan from this
-    environment unless ``env_extra`` sets one); returns its stdout."""
+def child_env(env_extra=None) -> dict:
+    """The environment of a fresh process of the port: ``src/`` on its
+    path, no tune cache or fault plan from this environment unless
+    ``env_extra`` sets one."""
     import os
     env = {k: v for k, v in os.environ.items()
            if k not in ("REPRO_TORCH_TUNE_CACHE", "REPRO_TORCH_FAULT_PLAN")}
     env["PYTHONPATH"] = str(ROOT / "src")
     env.update(env_extra or {})
+    return env
+
+
+def run_cli(argv, env_extra=None, timeout=900):
+    """``python -m repro_torch.launch.clique ARGV`` in a fresh process
+    (:func:`child_env`); returns its stdout."""
+    env = child_env(env_extra)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.clique", *argv],
@@ -1819,9 +1870,9 @@ DELTA_REBUILD_PAIRS = 250
 #: the set differences with their sort) and the listing's inside them
 DELTA_SPANS = ("delta/list", "delta/diff", "extract", "pack", "device",
                "decode", "overflow/relist")
-#: the k of the 0.2 % batch's net counts on rmat15 (k = 7 left out: the
+#: the k of the 0.2 % batch's net counts on rmat13 (k = 7 left out: the
 #: batch rebuilds, so each k recounts both whole graphs)
-DELTA15_KS = (5,)
+DELTA_MID_KS = (5,)
 
 
 def clique_checks(rows, graph, batch_keys) -> dict:
@@ -1851,15 +1902,16 @@ def clique_checks(rows, graph, batch_keys) -> dict:
                 distinct=not bool((keys[1:] == keys[:-1]).any()))
 
 
-def delta_phase(g, plan, lg, lplan) -> dict:
+def delta_phase(mg, mplan, lg, lplan) -> dict:
     """``[delta]``: a PlanIndex on rmat12 on the card (its plan warm from
     the listing phase) takes three seeded repair batches and one past
     CHURN_THRESHOLD; each batch's table equals a full build under the
     index's decomposition, its k = 5 and 6 counts equal a fresh plan's, and
     its k = 5 delta (the list kernel over the touched tiles) is exact by
-    three card counts and by its rows, its time split by the trace.  The composed delta since version 0
-    follows the per-batch deltas.  Then one seeded 0.2 % batch on rmat15
-    with its net counts against the pinned counts and the fresh plan's."""
+    three card counts and by its rows, its time split by the trace.  The
+    composed delta since version 0 follows the per-batch deltas.  Then one
+    seeded 0.2 % batch on rmat13 with its net counts against the pinned
+    counts and the fresh plan's."""
     import numpy as np
     from repro_torch.core import ebbkc, pipeline
     from repro_torch.core.engine_np import Stats
@@ -1871,7 +1923,7 @@ def delta_phase(g, plan, lg, lplan) -> dict:
     out = {"batches": []}
     stats = Stats()
     warm(lg, lplan)
-    warm(g, plan)
+    warm(mg, mplan)
     idx = PlanIndex(lg, stats=stats)
     if not stats.plan_cache_hit:
         fail("[delta] the rmat12 plan was not warm")
@@ -1990,16 +2042,16 @@ def delta_phase(g, plan, lg, lplan) -> dict:
     if not composed:
         fail("[delta] the composed delta does not follow the batches")
 
-    # one 0.2 % batch on rmat15, its net counts on the card
-    idx15 = PlanIndex(g)
+    # one 0.2 % batch on rmat13, its net counts on the card
+    idx_mid = PlanIndex(mg)
     rng = np.random.default_rng(7)
-    pairs = round(0.002 * g.m)
-    ins = rng.integers(0, g.n, (pairs - pairs // 2, 2))
-    dele = g.edges[rng.choice(g.m, pairs // 2, replace=False)]
+    pairs = round(0.002 * mg.m)
+    ins = rng.integers(0, mg.n, (pairs - pairs // 2, 2))
+    dele = mg.edges[rng.choice(mg.m, pairs // 2, replace=False)]
     t0 = time.perf_counter()
-    idx15.apply_batch(insert=ins, delete=dele)
+    idx_mid.apply_batch(insert=ins, delete=dele)
     repair_s = time.perf_counter() - t0
-    rec = idx15._records[-1]
+    rec = idx_mid._records[-1]
     info = rec.info
     run = dict(pairs=pairs, churn=info.churn, rebuilt=info.rebuilt,
                touched=int(info.touched_new.size), repair_s=repair_s)
@@ -2007,9 +2059,9 @@ def delta_phase(g, plan, lg, lplan) -> dict:
         fresh, run["build_plan_s"] = rec.new_plan, repair_s
     else:
         t0 = time.perf_counter()
-        fresh = pipeline.build_plan(idx15.graph)
+        fresh = pipeline.build_plan(idx_mid.graph)
         run["build_plan_s"] = time.perf_counter() - t0
-    for k in DELTA15_KS:
+    for k in DELTA_MID_KS:
         ops.reset_counts()
         t0 = time.perf_counter()
         c_old, c_new, net = delta_net_count(rec.old_plan, rec.new_plan, info,
@@ -2017,21 +2069,21 @@ def delta_phase(g, plan, lg, lplan) -> dict:
         net_s = time.perf_counter() - t0
         launches = ops.launch_counts()
         c_fresh = (c_new if info.rebuilt
-                   else ebbkc.count(idx15.graph, k, plan=fresh).count)
+                   else ebbkc.count(idx_mid.graph, k, plan=fresh).count)
         run[f"k={k}"] = dict(retired=c_old, replaced=c_new, net=net,
                              fresh=c_fresh, net_s=net_s, launches=launches)
-        log(f"[delta] rmat15 0.2 % batch ({pairs} pairs): churn "
+        log(f"[delta] rmat{MID_SCALE} 0.2 % batch ({pairs} pairs): churn "
             f"{info.churn:.4f}, touched {run['touched']}, "
             f"{'rebuilt' if info.rebuilt else 'repaired'} in {repair_s:.2f} "
             f"s (build_plan {run['build_plan_s']:.2f} s); k={k}: net {net} "
             f"(retired {c_old}, replaced {c_new}) in {net_s:.2f} s, pinned "
-            f"{EXPECTED[k]} + net = {EXPECTED[k] + net}, fresh plan "
-            f"{c_fresh}; launches {launches}")
-        if EXPECTED[k] + net != c_fresh or (info.rebuilt
-                                            and c_old != EXPECTED[k]):
-            fail(f"[delta] rmat15 k={k}: pinned {EXPECTED[k]} + net {net} "
-                 f"!= fresh {c_fresh} (retired {c_old})")
-    out["rmat15"] = run
+            f"{EXPECTED_MID[k]} + net = {EXPECTED_MID[k] + net}, fresh "
+            f"plan {c_fresh}; launches {launches}")
+        if EXPECTED_MID[k] + net != c_fresh or (
+                info.rebuilt and c_old != EXPECTED_MID[k]):
+            fail(f"[delta] rmat{MID_SCALE} k={k}: pinned {EXPECTED_MID[k]} "
+                 f"+ net {net} != fresh {c_fresh} (retired {c_old})")
+    out[f"rmat{MID_SCALE}"] = run
     return out
 
 
@@ -2042,7 +2094,7 @@ def delta_phase(g, plan, lg, lplan) -> dict:
 #: the burst's requests, one a client thread: (graph, k, mode, options)
 SERVE_VERTEX, SERVE_MAX_OUT = 7, 1000
 SERVE_SPECS = (
-    ("rmat15", 5, "count", {}), ("rmat15", 7, "count", {}),
+    ("rmat13", 5, "count", {}), ("rmat13", 7, "count", {}),
     ("rmat12", 5, "count", {}), ("rmat12", 6, "count", {}),
     ("rmat12", 7, "count", {}), ("rmat12", 5, "list", {}),
     ("rmat12", 5, "list", dict(vertex_filter=SERVE_VERTEX)),
@@ -2090,11 +2142,10 @@ def serve_burst(svc, specs, tolerate=()):
     return results, time.perf_counter() - t0
 
 
-def serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
-                list_runs) -> dict:
-    """``[serve]``: one CliqueService on the card with rmat15 and rmat12
+def serve_phase(mg, mplan, lg, lplan, delta_runs, list_runs) -> dict:
+    """``[serve]``: one CliqueService on the card with rmat13 and rmat12
     registered (plans warm): a paused-then-resumed burst of 8 client
-    threads (counts k = 5, 7 on rmat15 and k = 5, 6, 7 on rmat12; lists
+    threads (counts k = 5, 7 on rmat13 and k = 5, 6, 7 on rmat12; lists
     k = 5 on rmat12 unfiltered, filtered and truncated) against the pinned
     counts and digest; an update of rmat12 and a delta read against
     ``[delta]``'s first batch; a metrics scrape; the burst's rmat12
@@ -2108,10 +2159,10 @@ def serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
     from repro_torch.obs.export import scrape
     from repro_torch.resilience import inject
     from repro_torch.serve import CliqueService, apply_vertex_filter
-    graphs = {"rmat15": g, "rmat12": lg}
-    warm(g, plan)
+    graphs = {"rmat13": mg, "rmat12": lg}
+    warm(mg, mplan)
     warm(lg, lplan)
-    pinned = {("rmat15", 5): EXPECTED[5], ("rmat15", 7): EXPECTED[7],
+    pinned = {("rmat13", 5): EXPECTED_MID[5], ("rmat13", 7): EXPECTED_MID[7],
               ("rmat12", 5): EXPECTED_LIST[5][0],
               ("rmat12", 6): EXPECTED_LIST[6][0],
               ("rmat12", 7): EXPECTED_12_K7}
@@ -2229,9 +2280,9 @@ def serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
     finally:
         svc.close()
     # two lanes take the rmat12 requests, under the profiler (the device's
-    # busy share): the rmat15 counts' time is the scheduler thread's serial
-    # packing, one lane or two, and the full burst's 426,000 profiler
-    # events take about a minute to read
+    # busy share): the rmat13 counts' time is the scheduler thread's serial
+    # packing, one lane or two, and the full burst's profiler events take
+    # long to read
     svc, out["two_lanes"] = burst(
         "2 lanes", ["cuda:0", "cuda:0"],
         [s for s in SERVE_SPECS if s[0] == "rmat12"], profiled=True)
@@ -2286,15 +2337,12 @@ def serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
         svc.close()
 
     # the serial yardstick: the same requests one at a time through ebbkc
-    # (the rmat15 counts are [main]'s queries, k = 5 without its plan build,
-    # and the listing [list main]'s warm k = 5 query; a serial client
+    # (the listing is [list main]'s warm k = 5 query; a serial client
     # filters the listing's rows itself)
+    warm(mg, mplan)
     serial = {}
     for name, k, mode, kw in SERVE_SPECS:
         key = f"{name} k={k} {mode}" + ("" if not kw else " filtered")
-        if name == "rmat15":
-            serial[key] = main_runs[k]["wall_s"] - main_runs[k]["plan_build_s"]
-            continue
         if mode == "list":
             if not kw:  # the filtered ones are the client's own filtering
                 serial[key] = list_runs["k=5 warm"]["wall_s"]
@@ -2316,6 +2364,319 @@ def serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
         f"not gated): {total:.2f} s for {len(SERVE_SPECS)} requests "
         f"({len(SERVE_SPECS) / total:.3f} req/s): "
         + ", ".join(f"{k} {v:.2f} s" for k, v in serial.items()))
+    return out
+
+
+
+# The paper baseline runs on rmat_graph(11, 16, seed=7) (n = 2,048): the
+# largest scale of the generator whose four VBBkC host counts (ddegcol and
+# ddegcol+ at k = 5 and 6) take under a minute (19 s on a CPU; rmat12
+# about 75 s).  Counts from the JAX reference package on a CPU:
+#   PYTHONPATH=src python -c "from repro.data.graphs import rmat_graph; \
+#     from repro.core import ebbkc; g = rmat_graph(11, 16, seed=7); \
+#     print(ebbkc.count(g, K).count)"
+# with K = 5 and 6 (the k = 6 count is EXPECTED_LIST6's row count).
+BASELINE_SCALE = 11
+EXPECTED_11 = {5: 6_650_633, 6: EXPECTED_LIST6[0]}
+
+
+def baseline_phase() -> dict:
+    """``[baseline]``: the paper's VBBkC baseline (``vbbkc.count``, host
+    recursion, as in the reference) with ``ddegcol`` and ``ddegcol+`` at
+    k = 5 and 6 on rmat11, each equal to the card's ``ebbkc.count`` on the
+    same graph and to the pinned count; Lemma 4.1 (tau < delta) by
+    ``tau_delta_gap``; the quickstart twin in a fresh process on the
+    card."""
+    from repro_torch.core import ebbkc, vbbkc
+    from repro_torch.core.truss import tau_delta_gap
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.kernels import ops
+    g = rmat_graph(BASELINE_SCALE, edge_factor=16, seed=RMAT_SEED)
+    out = {"n": g.n, "m": g.m}
+    for k in (5, 6):
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        card = ebbkc.count(g, k).count
+        card_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        run = dict(card=card, card_s=card_s, launches=launches)
+        for variant in ("ddegcol", "ddegcol+"):
+            t0 = time.perf_counter()
+            r = vbbkc.count(g, k, variant=variant)
+            run[variant] = dict(count=r.count, s=time.perf_counter() - t0,
+                                branches=r.stats.branches,
+                                pruned_color=r.stats.pruned_color,
+                                tiles=r.tiles, max_tile=r.max_tile)
+            if r.count != card or card != EXPECTED_11[k]:
+                fail(f"[baseline] k={k}: VBBkC {variant} {r.count}, card "
+                     f"{card}, pinned {EXPECTED_11[k]}")
+        if not sum(launches.values()) or sum(ops.plain_counts().values()):
+            fail(f"[baseline] k={k}: the card's count launched {launches}")
+        out[f"k={k}"] = run
+        log(f"[baseline] rmat{BASELINE_SCALE} k={k}: {card} cliques; card "
+            f"ebbkc.count {card_s:.2f} s (launches {launches}); host VBBkC "
+            + ", ".join(f"{v} {run[v]['s']:.2f} s ({run[v]['branches']} "
+                        f"branches, {run[v]['pruned_color']} color-pruned)"
+                        for v in ("ddegcol", "ddegcol+"))
+            + " -- equal")
+    t0 = time.perf_counter()
+    tau, delta = tau_delta_gap(g)
+    out["tau_delta"] = dict(tau=tau, delta=int(delta),
+                            s=time.perf_counter() - t0)
+    log(f"[baseline] tau_delta_gap: tau={tau} delta={delta} (Lemma 4.1 "
+        f"tau < delta: {tau < delta})")
+    if not tau < delta:
+        fail("[baseline] tau >= delta")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+        cwd=ROOT, env=child_env(), capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"[baseline] examples/quickstart_torch.py ({wall:.1f} s, exit "
+        f"{proc.returncode}): " + " | ".join(lines))
+    if proc.returncode or not lines or not lines[-1].startswith(
+            "device engine agrees: True (engine: torch:cuda"):
+        fail(f"[baseline] the quickstart twin failed: {proc.stderr[-2000:]}")
+    out["quickstart_s"] = wall
+    return out
+
+
+def truss_phase(lg) -> dict:
+    """``[truss]``: the on-device truss decomposition
+    (``truss_decomposition_torch``, round-based peeling in torch ops) on
+    rmat12 on the card against the port's host peeler: trussness array and
+    tau equal; both times and the card's peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.core.truss import truss_decomposition
+    from repro_torch.core.truss_torch import truss_decomposition_torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    runs = []
+    for _ in range(2):  # the first call pays the ops' first launches
+        t0 = time.perf_counter()
+        truss, tau = truss_decomposition_torch(lg)  # ends in a D2H read
+        runs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - held
+    t0 = time.perf_counter()
+    td = truss_decomposition(lg)
+    host_s = time.perf_counter() - t0
+    same = bool(np.array_equal(truss, td.trussness)) and tau == td.tau
+    out = dict(n=lg.n, m=lg.m, tau=tau, device_s=runs, host_s=host_s,
+               peak_bytes=peak, equal=same)
+    log(f"[truss] rmat{LIST_SCALE} (n={lg.n}, m={lg.m}): card "
+        f"truss_decomposition_torch {runs[0]:.3f} s cold, {runs[1]:.3f} s "
+        f"warm (peak {peak / 2**20:.1f} MiB over what earlier phases hold); "
+        f"host peeler {host_s:.3f} s; "
+        f"tau {tau} (host {td.tau}); trussness equal: {same}")
+    if not same:
+        fail("[truss] the card's trussness differs from the host peeler's")
+    return out
+
+
+# [lm serve]: granite-3-8b at its published widths, 8 requests of 32
+# prompt tokens and 16 greedy tokens.  LM_ATOL bounds three readings of
+# the max |logit| difference: the first decode step against forward on the
+# prompt plus that token (both bf16: the two sides take different GEMM
+# shapes, so bf16 rounding differs and grows over 40 layers), the bf16
+# prefill against an f32 forward of the same params (the casts), and the
+# prefill against forward's last position (the two share the layer code,
+# so this one reads 0 unless prefill's own embedding, norm or last-position
+# slice departs).  Logits from these weights have magnitude up to about 6,
+# where one bf16 ulp is 0.03, and the bound is 8 of them.  The planted
+# faults (LM_FAULTS) show that the bound catches a wrong position, a wrong
+# request's cache and a lost cache entry: each must read above it.
+LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_TOKENS = "granite-3-8b", 8, 32, 16
+LM_ATOL = 0.25
+#: the first decode step, faulted on purpose, against forward(prompt +
+#: token): decoding at position lengths - 1 (over the prompt's last cache
+#: slot), reading the next request's cache, and with the prompt's last
+#: cache entry zeroed in every layer
+LM_FAULTS = ("position lengths - 1", "another request's cache",
+             "last prompt entry lost")
+# the reduced configs on the card against the port's CPU run, f32 with
+# TF32 off: summation order only
+LM_SMALL_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def lm_planted_faults(params, prompts, token, cfg, want) -> dict:
+    """Max |logits - want| of the first decode step (``token`` after
+    ``prompts``) with each of :data:`LM_FAULTS` planted in its inputs, the
+    unfaulted step as the control; each step on a fresh prefill cache."""
+    import torch
+    from repro_torch.models import transformer as tr
+    B, S = prompts.shape
+    lengths = torch.full((B,), S, dtype=torch.int64, device=prompts.device)
+
+    def lose_last(cache):
+        for kv in cache.values():
+            Sc = kv["k"].shape[2]
+            kv["k"][:, :, (S - 1) % Sc] = 0
+            kv["v"][:, :, (S - 1) % Sc] = 0
+        return cache
+
+    def roll(cache):
+        return {kind: {n: torch.roll(x, 1, dims=1) for n, x in kv.items()}
+                for kind, kv in cache.items()}
+
+    plants = {"control": (lambda c: c, lengths),
+              LM_FAULTS[0]: (lambda c: c, lengths - 1),
+              LM_FAULTS[1]: (roll, lengths),
+              LM_FAULTS[2]: (lose_last, lengths)}
+    out = {}
+    with torch.inference_mode():
+        for name, (plant, at) in plants.items():
+            _, cache = tr.prefill(params, prompts, cfg,
+                                  max_len=S + LM_TOKENS)
+            logits, _ = tr.decode_step(params, plant(cache), token, at, cfg)
+            out[name] = float((logits - want).abs().max())
+    return out
+
+
+def lm_phase(header: str) -> dict:
+    """``[lm serve]``: ``repro_torch.launch.serve`` at granite-3-8b's full
+    width on the card (its CLI entry in this process, then the checked run
+    on the same seed); prefill and decode checked against ``forward`` and
+    the bf16 prefill against an f32 ``forward``, the planted faults of
+    :func:`lm_planted_faults` beyond the same bound, every generated id in
+    ``[0, padded_vocab)``; prefill and decode tok/s,
+    peak memory and the busy share of one profiled run; then the reduced
+    granite-3-8b and gemma3-27b configs (local windows) on the card
+    against the port's CPU run on the same params."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+    torch.cuda.empty_cache()
+    cfg = configs.get(LM_ARCH).full
+    out = {"arch": LM_ARCH, "num_params": cfg.num_params(),
+           "padded_vocab": cfg.padded_vocab}
+    argv = ["--arch", LM_ARCH, "--full", "--requests", str(LM_REQUESTS),
+            "--prompt-len", str(LM_PROMPT), "--tokens", str(LM_TOKENS)]
+    cli = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli):
+        serve.main(argv)
+    out["cli"] = dict(wall_s=time.perf_counter() - t0,
+                      stdout=cli.getvalue().strip().splitlines())
+    log(f"[lm serve] python -m repro_torch.launch.serve {' '.join(argv)} "
+        f"({out['cli']['wall_s']:.1f} s): " + " | ".join(out["cli"]["stdout"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    t0 = time.perf_counter()
+    params, prompts = serve.make_inputs(cfg, LM_REQUESTS, LM_PROMPT, "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params_bytes"] = sum(
+        w.numel() * w.element_size() for w in
+        [params["embed"], params["head"], params["final_ln"]]
+        + [w for st in params["groups"].values() for w in st.values()])
+    runs = [serve.generate(params, prompts, cfg, LM_TOKENS)
+            for _ in range(3)]  # cold, then two warm
+    peak = torch.cuda.max_memory_allocated() - held
+    # one more warm run under the profiler: the device's busy share and
+    # the kernels that take its time
+    busy = device_busy(f"{LM_ARCH} generate", lambda: serve.generate(
+        params, prompts, cfg, LM_TOKENS), tag="[lm serve]")
+    busy.pop("result")
+    log("[lm serve] top device kernels of the profiled run: " + ", ".join(
+        f"{name[:60]} {sec:.4f} s" for name, sec in busy["top_kernels"]))
+    gen = runs[0]
+    for r in runs[1:]:
+        if not torch.equal(r.tokens, gen.tokens):
+            fail("[lm serve] a second run generated other tokens")
+    bad = int(((gen.tokens < 0) | (gen.tokens >= cfg.padded_vocab)).sum())
+    with torch.inference_mode():
+        ref_last = tr.forward(params, prompts, cfg)[:, -1]
+        ext = torch.cat([prompts, gen.tokens[:, :1]], dim=1)
+        ref_next = tr.forward(params, ext, cfg)[:, -1]
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        ref32 = tr.forward(params, prompts, f32)[:, -1]
+    err_prefill = float((gen.prefill_logits - ref_last).abs().max())
+    err_decode = float((gen.decode_logits - ref_next).abs().max())
+    err_f32 = float((gen.prefill_logits - ref32).abs().max())
+    scale = float(ref_last.abs().max())
+    faults = lm_planted_faults(params, prompts, gen.tokens[:, :1], cfg,
+                               ref_next)
+    B = LM_REQUESTS
+    timing = [dict(prefill_s=r.prefill_s, decode_s=r.decode_s,
+                   prefill_tok_s=B * LM_PROMPT / r.prefill_s,
+                   decode_tok_s=B * (LM_TOKENS - 1) / r.decode_s)
+              for r in runs]
+    out.update(runs=timing, peak_bytes=peak, busy=busy, bad_ids=bad,
+               err_prefill=err_prefill, err_decode=err_decode,
+               err_bf16_vs_f32=err_f32, planted_faults=faults,
+               max_abs_logit=scale, atol=LM_ATOL,
+               sample=gen.tokens[0].tolist())
+    w = timing[-1]
+    log(f"[lm serve] {LM_ARCH} full width ({cfg.n_layers} layers, d="
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff="
+        f"{cfg.d_ff}, padded vocab {cfg.padded_vocab}; "
+        f"{out['params_bytes'] / 1e9:.2f} GB f32 params, init "
+        f"{out['init_s']:.2f} s): {B} x {LM_PROMPT} prompt + {LM_TOKENS} "
+        f"greedy tokens; cold prefill {timing[0]['prefill_s']:.3f} s decode "
+        f"{timing[0]['decode_s']:.3f} s; warm prefill {w['prefill_s']:.4f} s "
+        f"({w['prefill_tok_s']:.1f} tok/s), decode {w['decode_s']:.4f} s "
+        f"({w['decode_tok_s']:.1f} tok/s); peak "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated over what "
+        f"earlier phases hold); {header}")
+    log(f"[lm serve] |prefill - forward| {err_prefill:.5f}, |decode step 1 - "
+        f"forward(prompt + token)| {err_decode:.5f}, |bf16 prefill - f32 "
+        f"forward| {err_f32:.5f} (atol {LM_ATOL} each; max |logit| "
+        f"{scale:.3f}); ids outside [0, {cfg.padded_vocab}): {bad}; sample "
+        f"{out['sample'][:10]}")
+    log("[lm serve] planted faults, |decode step 1 - forward(prompt + "
+        "token)| (each must exceed the atol): " + ", ".join(
+            f"{name} {err:.5f}" for name, err in faults.items()))
+    if bad or not max(err_prefill, err_decode, err_f32) <= LM_ATOL:
+        fail("[lm serve] the full-width serve run disagrees with forward")
+    if not faults["control"] <= LM_ATOL or not all(
+            faults[name] > LM_ATOL for name in LM_FAULTS):
+        fail(f"[lm serve] LM_ATOL does not tell the planted faults from the "
+             f"unfaulted step: {faults}")
+    del params, runs, gen, ref_last, ref_next, ref32
+    torch.cuda.empty_cache()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in ("granite-3-8b", "gemma3-27b"):
+            small = dataclasses.replace(configs.get(arch).reduced,
+                                        dtype=torch.float32)
+            cpu_p, cpu_t = serve.make_inputs(small, LM_REQUESTS, LM_PROMPT,
+                                             "cpu", seed=1)
+            card_p = {k: v.cuda() for k, v in cpu_p.items()
+                      if k != "groups"}
+            card_p["groups"] = {
+                kind: {n: x.cuda() for n, x in st.items()}
+                for kind, st in cpu_p["groups"].items()}
+            want = serve.generate(cpu_p, cpu_t, small, LM_TOKENS)
+            got = serve.generate(card_p, cpu_t.cuda(), small, LM_TOKENS)
+            e1 = float((got.prefill_logits.cpu()
+                        - want.prefill_logits).abs().max())
+            e2 = float((got.decode_logits.cpu()
+                        - want.decode_logits).abs().max())
+            same = torch.equal(got.tokens.cpu(), want.tokens)
+            ok = same and all(
+                torch.allclose(a.cpu(), b, **LM_SMALL_TOL) for a, b in (
+                    (got.prefill_logits, want.prefill_logits),
+                    (got.decode_logits, want.decode_logits)))
+            out[f"reduced {arch}"] = dict(err_prefill=e1, err_decode=e2,
+                                          tokens_equal=same)
+            log(f"[lm serve] reduced {arch} ({small.layer_groups}, window "
+                f"{small.local_window}) f32 on the card vs the CPU: "
+                f"|prefill| {e1:.2e}, |decode step 1| {e2:.2e}, tokens "
+                f"equal: {same}")
+            if not ok:
+                fail(f"[lm serve] reduced {arch}: the card differs from the "
+                     f"CPU beyond {LM_SMALL_TOL}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return out
 
 
@@ -2636,8 +2997,18 @@ def main(argv=None) -> int:
                 real[("list", T, k - 2, which)] = list_case(
                     rows, errs, A, cand, k - 2, cap, tag, reps=20)
 
+    # -- the later phases' graph ---------------------------------------------
+    mg = rmat_graph(MID_SCALE, edge_factor=RMAT_EDGE_FACTOR, seed=RMAT_SEED)
+    t0 = time.perf_counter()
+    mplan = pipeline.cached_plan(mg, "hybrid")
+    mid_plan_s = time.perf_counter() - t0
+    log(f"[mid] rmat_graph({MID_SCALE}, edge_factor={RMAT_EDGE_FACTOR}, "
+        f"seed={RMAT_SEED}): n={mg.n} m={mg.m}, plan built in "
+        f"{mid_plan_s:.2f} s; the queries of [dispatch], [obs], [widths], "
+        f"[delta] and [serve] run on it")
+
     # -- the multi-lane dispatcher ------------------------------------------
-    dispatch_runs = dispatch_phase(g, plan, lg, lplan, main_runs, list_runs,
+    dispatch_runs = dispatch_phase(mg, mplan, plan, lg, lplan, list_runs,
                                    queries)
 
     log(f"[time] [dispatch] done at {time.perf_counter() - t_start:.1f} s")
@@ -2696,15 +3067,15 @@ def main(argv=None) -> int:
 
     log(f"[time] [cli] done at {time.perf_counter() - t_start:.1f} s")
     # -- observability and resilience ----------------------------------------
-    obs_runs = obs_phase(g, plan, lg, lplan, dispatch_runs, list_trace,
+    obs_runs = obs_phase(mg, mplan, lg, lplan, dispatch_runs, list_trace,
                          queries)
     log(f"[time] [obs] done at {time.perf_counter() - t_start:.1f} s")
     resilience_runs = resilience_phase(lg, lplan, queries, cli_outputs)
     log(f"[time] [resilience] done at {time.perf_counter() - t_start:.1f} s")
 
     # -- the new tile widths, plan persistence, the tuner --------------------
-    widths_runs = widths_phase(g, plan, lplan, rows, errs, ptxas, main_runs,
-                               queries)
+    widths_runs = widths_phase(plan, mg, mplan, lplan, rows, errs, ptxas,
+                               dispatch_runs, queries)
     log(f"[time] [widths] done at {time.perf_counter() - t_start:.1f} s")
     persist_runs = persist_phase(g, plan, lg, lplan, main_runs)
     log(f"[time] [persist] done at {time.perf_counter() - t_start:.1f} s")
@@ -2714,12 +3085,19 @@ def main(argv=None) -> int:
     # -- tiles wider than 256, dynamic graphs, the serving tier --------------
     wide_runs = wide_phase(rows, errs, ptxas)
     log(f"[time] [wide] done at {time.perf_counter() - t_start:.1f} s")
-    delta_runs = delta_phase(g, plan, lg, lplan)
+    delta_runs = delta_phase(mg, mplan, lg, lplan)
     log(f"[time] [delta] done at {time.perf_counter() - t_start:.1f} s")
-    serve_runs = serve_phase(g, plan, lg, lplan, delta_runs, main_runs,
-                             list_runs)
+    serve_runs = serve_phase(mg, mplan, lg, lplan, delta_runs, list_runs)
     log(f"[time] [serve] done at {time.perf_counter() - t_start:.1f} s")
     del delta_runs["first_batch"]  # arrays, handed to [serve]
+
+    # -- the paper baseline, the on-device truss, the LM serving path -------
+    baseline_runs = baseline_phase()
+    log(f"[time] [baseline] done at {time.perf_counter() - t_start:.1f} s")
+    truss_runs = truss_phase(lg)
+    log(f"[time] [truss] done at {time.perf_counter() - t_start:.1f} s")
+    lm_runs = lm_phase(header)
+    log(f"[time] [lm serve] done at {time.perf_counter() - t_start:.1f} s")
 
     # -- summary -----------------------------------------------------------
     # each kernel's row: the bin with most launches on its path; launches
@@ -2770,6 +3148,7 @@ def main(argv=None) -> int:
                  for tag, t in widths_runs["times"].items()}},
              "persist": persist_runs, "tune": tune_runs,
              "wide": wide_runs, "delta": delta_runs, "serve": serve_runs,
+             "baseline": baseline_runs, "truss": truss_runs, "lm": lm_runs,
              "launches": count_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,

@@ -1,14 +1,15 @@
 """Carry the system's state across from the reference package.
 
-The system has no weights: its state is the graph, the preprocessing plan
-and the packed tile batches.  This module turns that state, handed over as
-plain numpy arrays, into the port's own objects, so a parity test can give
-one prebuilt plan and one batch to both packages.  It imports nothing of
-the reference package.
+The clique engine has no weights: its state is the graph, the
+preprocessing plan and the packed tile batches.  The model substrate's
+state is its params.  This module turns that state, handed over as plain
+numpy arrays, into the port's own objects, so a parity test can give one
+prebuilt plan, one batch or one set of weights to both packages.  It
+imports nothing of the reference package.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -34,3 +35,22 @@ def batch_to_torch(A_u32: np.ndarray, cand_u32: np.ndarray, device
         return A, cand
     return (A.pin_memory().to(device, non_blocking=True),
             cand.pin_memory().to(device, non_blocking=True))
+
+
+def lm_params_to_torch(np_params: Any, device,
+                       dtype: torch.dtype = torch.float32) -> Any:
+    """The reference transformer's params, as nested dicts (and lists) of
+    numpy arrays, -> the same tree of ``dtype`` tensors on ``device``.
+
+    The port's ``models.transformer`` keeps the reference's keys and
+    stacked shapes, so the map is key for key.
+    """
+    if isinstance(np_params, dict):
+        return {k: lm_params_to_torch(v, device, dtype)
+                for k, v in np_params.items()}
+    if isinstance(np_params, (list, tuple)):
+        return type(np_params)(lm_params_to_torch(v, device, dtype)
+                               for v in np_params)
+    arr = np.asarray(np_params)
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+        device=torch.device(device), dtype=dtype)

@@ -10,13 +10,15 @@ bin here, and the launcher's ``--verify`` checks against it.
                      Algorithm 3 (ESet semantics).
 * ``count_rec_C`` -- color-ordered edge-oriented branching on a DAG
                      (Algorithm 4), with pruning Rules (1) and (2).
+* ``count_rec_V`` -- vertex-oriented branching (Algorithm 1 = VBBkC) with
+                     optional color pruning (DDegCol+ ablation); the
+                     paper's baseline, :mod:`repro_torch.core.vbbkc`.
 
 * ``list_rec_C``  -- the listing twin of ``count_rec_C``: emits local-id
                      tuples; the listing engine relists overflowed and
                      spilled tiles with it.
 
-All support early termination into :mod:`repro_torch.core.plex`.  Still
-to be ported: ``count_rec_V`` (VBBkC baseline).
+All support early termination into :mod:`repro_torch.core.plex`.
 """
 from __future__ import annotations
 
@@ -304,6 +306,45 @@ def count_rec_T(edges: List[Tuple[int, int]], cand: int, num_local: int,
         sub_edges = [(x, y) for (x, y) in edges[i + 1:]
                      if (sub >> x) & 1 and (sub >> y) & 1]
         total += count_rec_T(sub_edges, sub, num_local, l - 2, stats, et_t)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# VBBkC baseline inner recursion (Algorithm 1; optional color pruning)
+# ---------------------------------------------------------------------------
+
+def count_rec_V(rows: Sequence[int], cand: int, l: int, stats: Stats,
+                colors: Optional[Sequence[int]] = None, et_t: int = 0,
+                use_rule2: bool = False) -> int:
+    nv = popcount(cand)
+    if nv < l:
+        stats.pruned_size += 1
+        return 0
+    if l == 0:
+        return 1
+    if l == 1:
+        return nv
+    if l == 2:
+        return _count_edges(rows, cand)
+    stats.peak_graph = max(stats.peak_graph, nv)
+    et = _try_et(rows, cand, l, et_t,
+                 stats, lambda r, c, ll: count_rec_V(r, c, ll, stats, colors,
+                                                     0, use_rule2))
+    if et is not None:
+        return et
+    total = 0
+    for v in bits(cand):
+        if colors is not None and colors[v] < l:  # VBBkC color Rule (1)
+            stats.pruned_color += 1
+            continue
+        sub = cand & rows[v] & mask_gt(v)
+        stats.branches += 1
+        if colors is not None and use_rule2:
+            distinct = len({colors[w] for w in bits(sub)})
+            if distinct < l - 1:  # Rule (2) adapted to VBBkC (Sec. 4.3)
+                stats.pruned_color += 1
+                continue
+        total += count_rec_V(rows, sub, l - 1, stats, colors, et_t, use_rule2)
     return total
 
 

@@ -38,21 +38,11 @@ from .graph import Graph
 from . import pipeline
 from . import tiles as tiles_mod
 from ..convert import batch_to_torch
+from ..device import resolve_device
 from ..kernels import ops as kops
 from ..kernels.common import pascal_table
 from ..kernels.ref import edges_within_ref
 from ..tune import search as tune_search
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; raise if CUDA is asked for (or
-    implied) and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device=\"cpu\" to run "
-            "the port's plain torch versions on the CPU")
-    return dev
 
 
 # ---------------------------------------------------------------------------

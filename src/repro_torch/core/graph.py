@@ -4,11 +4,11 @@ The preprocessing phase of EBBkC (truss decomposition, degeneracy ordering,
 greedy coloring) is O(delta*m) work with irregular data-dependent updates --
 in a production deployment it runs on the host data pipeline (CPU), exactly
 like the paper's C++ preprocessing, while the exponential enumeration phase
-runs on the accelerator.
+runs on the accelerator.  A vectorized torch truss variant lives in
+``repro_torch.core.truss_torch`` for fully on-device pipelines.
 
 This is the PyTorch port's own copy of the reference package's graph module
-(same numpy code, so plans and tiles come out bit-for-bit identical).  Still
-to be ported with the incremental-plan slice: ``apply_edge_batch``.
+(same numpy code, so plans and tiles come out bit-for-bit identical).
 """
 from __future__ import annotations
 
@@ -229,3 +229,36 @@ def color_vertex_order(colors: np.ndarray) -> np.ndarray:
     """Non-increasing color, ties by vertex id. Returns order array."""
     n = len(colors)
     return np.lexsort((np.arange(n), -colors))
+
+
+def max_clique_size(g: Graph, ub: Optional[int] = None) -> int:
+    """omega via simple BB with greedy-color bound (small graphs / stats only)."""
+    order, delta = degeneracy_order(g)
+    colors, _ = greedy_coloring(g, order)
+    adj = [set(g.neighbors(v).tolist()) for v in range(g.n)]
+    best = 0
+    rank = np.empty(g.n, dtype=np.int64)
+    rank[order] = np.arange(g.n)
+
+    def expand(cand, size):
+        nonlocal best
+        if size + len(cand) <= best:
+            return
+        # color bound
+        cs = sorted({int(colors[v]) for v in cand}, reverse=True)
+        if size + len(cs) <= best:
+            return
+        for i, v in enumerate(sorted(cand, key=lambda x: -colors[x])):
+            if size + len(cand) - i <= best:
+                return
+            nc = [w for w in cand if w in adj[v] and rank[w] > rank[v]]
+            if size + 1 > best:
+                best = size + 1
+            expand(nc, size + 1)
+
+    for v in order:
+        cand = [w for w in adj[int(v)] if rank[w] > rank[int(v)]]
+        expand(cand, 1)
+        if ub is not None and best >= ub:
+            break
+    return best

@@ -24,8 +24,8 @@ color  : global greedy coloring; DAG by color order; tile = common
          out-neighbors; Rules (1)/(2) prune whole tiles (Alg. 4).
 hybrid : truss extraction + per-tile local coloring for inner pruning
          (Alg. 5) -- the paper's default EBBkC.
-
-The vertex-tile extractor (VBBkC baseline) waits for a later slice.
+vertex : VBBkC baseline (Alg. 1): one tile per vertex (out-neighborhood in
+         the degeneracy DAG), optionally locally colored (DDegCol).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from .graph import Graph, greedy_coloring, color_vertex_order
+from .graph import Graph, degeneracy_order, greedy_coloring, color_vertex_order
 from .truss import truss_decomposition
 
 
@@ -170,3 +170,35 @@ def edge_tiles(g: Graph, k: int, mode: str = "hybrid",
                        colors=tile_colors)
     else:
         raise ValueError(f"unknown edge-tile mode: {mode}")
+
+
+def vertex_tiles(g: Graph, k: int, colored: bool = True) -> Iterator[Tile]:
+    """VBBkC baseline: one tile per vertex (degeneracy DAG out-neighborhood)."""
+    order, _ = degeneracy_order(g)
+    rank = np.empty(g.n, dtype=np.int64)
+    rank[order] = np.arange(g.n)
+    adjset = [set(g.neighbors(x).tolist()) for x in range(g.n)]
+    for v in order.tolist():
+        verts = sorted(w for w in adjset[v] if rank[w] > rank[v])
+        if len(verts) < k - 1:
+            continue
+        s = len(verts)
+        rows = [0] * s
+        ne = 0
+        for i in range(s):
+            ai = adjset[verts[i]]
+            for j in range(i + 1, s):
+                if verts[j] in ai:
+                    rows[i] |= 1 << j
+                    rows[j] |= 1 << i
+                    ne += 1
+        va = np.asarray(verts, dtype=np.int64)
+        if colored:
+            cols, corder = _local_color(rows, s)
+            rows = _relabel(rows, corder)
+            va = va[np.asarray(corder)]
+            cols = [cols[i] for i in corder]
+            yield Tile((v,), va, rows, ne, colors=cols)
+        else:
+            yield Tile((v,), va, rows, ne)
+    return

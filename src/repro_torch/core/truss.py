@@ -12,7 +12,7 @@ peel order (and with it every tile) is identical.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -133,3 +133,11 @@ def truss_decomposition(g: Graph) -> TrussDecomposition:
     return TrussDecomposition(order=order, rank=rank, support0=sup0,
                               peel_support=peel_by_edge,
                               trussness=trussness, tau=int(level))
+
+
+def tau_delta_gap(g: Graph) -> Tuple[int, int]:
+    """(tau, delta) pair; Lemma 4.1 asserts tau < delta on every graph."""
+    from .graph import degeneracy_order
+    td = truss_decomposition(g)
+    _, delta = degeneracy_order(g)
+    return td.tau, delta

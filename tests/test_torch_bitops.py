@@ -22,6 +22,9 @@ from repro_torch.kernels import common as tc
 
 BINS = (32, 64, 128, 256)
 ROOT = Path(__file__).resolve().parents[1]
+# the port's twins of the reference's examples
+EXAMPLE_TWINS = [ROOT / "examples" / "quickstart_torch.py",
+                 ROOT / "examples" / "clique_service_torch.py"]
 
 
 def words(seed, shape):
@@ -121,9 +124,20 @@ def test_port_imports_no_jax_and_no_repro():
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     assert "repro_torch.core.listing" in mods
-    code = ("import sys, importlib\n"
+    # every module of the later slices is picked up too
+    assert {"repro_torch.core.vbbkc", "repro_torch.core.oracle",
+            "repro_torch.core.truss_torch", "repro_torch.configs.__init__",
+            "repro_torch.configs.granite_3_8b", "repro_torch.models.common",
+            "repro_torch.models.transformer",
+            "repro_torch.launch.serve"} <= set(mods)
+    examples = [str(p) for p in EXAMPLE_TWINS]
+    code = ("import sys, importlib, importlib.util\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"
+            f"for i, path in enumerate({examples!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        f'example{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -149,6 +163,7 @@ def _imported_modules(path):
 def test_no_source_of_the_port_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.extend(EXAMPLE_TWINS)
     assert len(files) > 10
     # the observability and resilience layers are sources like the rest
     assert {"obs", "resilience"} <= {p.parent.name for p in files}

@@ -972,3 +972,98 @@ def test_service_on_card_matches_cpu(cuda, lanes):
         else:
             assert got.rows.tobytes() == want.rows.tobytes()
     assert results["card"][-1].rows.shape[0] > 0
+
+
+# ---------------------------------------------------------------------------
+# on-device truss and the dense-LM serving path (no kernel of their own:
+# torch ops on the card, held against the host peeler / the CPU run)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("graph", ["rmat10", "powerlaw"])
+def test_truss_on_card_matches_host(cuda, graph):
+    from repro_torch.core.truss import truss_decomposition
+    from repro_torch.core.truss_torch import truss_decomposition_torch
+    g = (graphs.rmat_graph(10, 16, seed=7) if graph == "rmat10"
+         else graphs.powerlaw_graph(2000, 12, seed=3))
+    truss, tau = truss_decomposition_torch(g)
+    td = truss_decomposition(g)
+    assert tau == td.tau
+    np.testing.assert_array_equal(truss, td.trussness)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma3-27b"])
+def test_reduced_transformer_on_card_matches_cpu(cuda, arch):
+    """f32 (TF32 off), the same params on both: logits within rtol 1e-4 /
+    atol 1e-4 (summation order of the card's GEMMs), greedy tokens equal."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+    cfg = dataclasses.replace(configs.get(arch).reduced, dtype=torch.float32)
+    params, prompts = serve.make_inputs(cfg, 4, 24, "cpu", seed=1)
+    on_card = {k: v.to(cuda) for k, v in params.items() if k != "groups"}
+    on_card["groups"] = {kind: {n: w.to(cuda) for n, w in stack.items()}
+                         for kind, stack in params["groups"].items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = serve.generate(params, prompts, cfg, 6)
+        got = serve.generate(on_card, prompts.to(cuda), cfg, 6)
+        logits = tr.forward(on_card, prompts.to(cuda), cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    np.testing.assert_allclose(got.prefill_logits.cpu().numpy(),
+                               want.prefill_logits.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.decode_logits.cpu().numpy(),
+                               want.decode_logits.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(logits.cpu().numpy(),
+                               tr.forward(params, prompts, cfg).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+
+
+def test_service_twin_runs_on_card(cuda):
+    """``examples/clique_service_torch.py`` with its default lanes (every
+    CUDA device): exit 0, every request served with no deadline miss, and
+    each answer equal to the twin's CPU run (``--device cpu``)."""
+    import os
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+
+    def run(*extra):
+        out = subprocess.run(
+            [sys.executable, str(root / "examples" / "clique_service_torch.py"),
+             "--snapshots", "2", "--k", "4", *extra], env=env, cwd=root,
+            capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-2000:]
+        lines = out.stdout.strip().splitlines()
+        # drop the "(per-vertex rate, latency)" group of each answer line
+        answers = [re.sub(r" \([^)]*\)", "", ln) for ln in lines
+                   if ln.startswith("[")]
+        return lines, answers
+
+    lines, card = run()
+    assert "lanes: every CUDA device" in "\n".join(lines)
+    assert lines[-1].startswith("served 6 requests"), lines
+    assert lines[-1].endswith(" 0 deadline misses"), lines[-1]
+    assert len(card) == 6
+    assert card == run("--device", "cpu")[1]
+
+
+def test_new_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """Runs without a card: with CUDA reported absent, the device truss and
+    the serve launcher raise instead of moving to the CPU."""
+    from repro_torch.core.truss_torch import truss_decomposition_torch
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        truss_decomposition_torch(graphs.rmat_graph(6, 4, seed=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "granite-3-8b", "--requests", "1",
+                    "--tokens", "2"])
