@@ -103,8 +103,26 @@ the whole smoke stays inside its time limit:
   vocab, prefill and decode tok/s, peak memory and the device's busy share of
   one run under the profiler; and the reduced granite-3-8b
   and gemma3-27b configs (local windows) on the card against the port's
-  CPU run on the same params.  The LM and truss paths run none of the
-  four kernels (torch ops only, as the reference runs XLA ops there).
+  CPU run on the same params;
+* the MoE serving path (``[moe serve]``): ``launch.serve`` at
+  deepseek-moe-16b's published widths and depth (28 layers, 64 routed
+  experts top-6 plus 2 shared, f32 params, bf16 compute), 8 requests of
+  32 prompt tokens and 16 greedy tokens: the bf16 prefill against bf16
+  ``forward``, a dropless f32 decode step against f32 ``forward`` with
+  the smallest top-6 router gap, two planted routing faults beyond
+  ``LM_ATOL``, ids in the vocab and equal tokens over runs, init time,
+  tok/s, peak memory and busy share; the reduced deepseek-moe-16b and
+  dbrx-132b configs on the card against the CPU;
+* training (``[train]``): granite-3-8b at its published widths cut to 8
+  layers, seq 4,096, a batch of 4 in 2 microbatches, remat on, 3 steps of
+  ``launch.steps``' train step through ``TrainLoop`` (step time,
+  tokens/s, peak memory, busy share; step 0 in bf16 against an f32 pass),
+  ``launch.train`` in fresh processes (reduced granite-3-8b, crashed and
+  resumed bitwise, and reduced deepseek-moe-16b), the reduced configs
+  trained on the card against the CPU, and
+  ``examples/train_lm_torch.py``.  The LM, MoE, training and truss paths
+  run none of the four kernels (torch ops only, as the reference runs
+  XLA ops there).
 
 Any failure raises and exits non-zero.
 
@@ -2572,10 +2590,7 @@ def lm_phase(header: str) -> dict:
     params, prompts = serve.make_inputs(cfg, LM_REQUESTS, LM_PROMPT, "cuda")
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
-    out["params_bytes"] = sum(
-        w.numel() * w.element_size() for w in
-        [params["embed"], params["head"], params["final_ln"]]
-        + [w for st in params["groups"].values() for w in st.values()])
+    out["params_bytes"] = params_bytes(params)
     runs = [serve.generate(params, prompts, cfg, LM_TOKENS)
             for _ in range(3)]  # cold, then two warm
     peak = torch.cuda.max_memory_allocated() - held
@@ -2642,19 +2657,27 @@ def lm_phase(header: str) -> dict:
     del params, runs, gen, ref_last, ref_next, ref32
     torch.cuda.empty_cache()
 
+    reduced_vs_cpu(("granite-3-8b", "gemma3-27b"), "[lm serve]", out)
+    return out
+
+
+def reduced_vs_cpu(archs, tag: str, out: dict) -> None:
+    """The reduced configs of ``archs``, f32 with TF32 off, served on the
+    card against the port's CPU run on the same params: prefill and first
+    decode step logits within :data:`LM_SMALL_TOL`, greedy tokens equal."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for arch in ("granite-3-8b", "gemma3-27b"):
+        for arch in archs:
             small = dataclasses.replace(configs.get(arch).reduced,
                                         dtype=torch.float32)
             cpu_p, cpu_t = serve.make_inputs(small, LM_REQUESTS, LM_PROMPT,
                                              "cpu", seed=1)
-            card_p = {k: v.cuda() for k, v in cpu_p.items()
-                      if k != "groups"}
-            card_p["groups"] = {
-                kind: {n: x.cuda() for n, x in st.items()}
-                for kind, st in cpu_p["groups"].items()}
+            card_p = to_card(cpu_p)
             want = serve.generate(cpu_p, cpu_t, small, LM_TOKENS)
             got = serve.generate(card_p, cpu_t.cuda(), small, LM_TOKENS)
             e1 = float((got.prefill_logits.cpu()
@@ -2668,15 +2691,510 @@ def lm_phase(header: str) -> dict:
                     (got.decode_logits, want.decode_logits)))
             out[f"reduced {arch}"] = dict(err_prefill=e1, err_decode=e2,
                                           tokens_equal=same)
-            log(f"[lm serve] reduced {arch} ({small.layer_groups}, window "
-                f"{small.local_window}) f32 on the card vs the CPU: "
-                f"|prefill| {e1:.2e}, |decode step 1| {e2:.2e}, tokens "
-                f"equal: {same}")
+            log(f"{tag} reduced {arch} ({small.layer_groups}, window "
+                f"{small.local_window}, moe {small.moe}) f32 on the card vs "
+                f"the CPU: |prefill| {e1:.2e}, |decode step 1| {e2:.2e}, "
+                f"tokens equal: {same}")
             if not ok:
-                fail(f"[lm serve] reduced {arch}: the card differs from the "
+                fail(f"{tag} reduced {arch}: the card differs from the "
                      f"CPU beyond {LM_SMALL_TOL}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def to_card(tree):
+    """A tree of CPU tensors (dicts and lists) as the same tree on the
+    card."""
+    if isinstance(tree, dict):
+        return {k: to_card(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_card(v) for v in tree)
+    return tree.cuda()
+
+
+def params_bytes(params) -> int:
+    from repro_torch.optim import tree_leaves
+    return sum(w.numel() * w.element_size() for w in tree_leaves(params))
+
+
+# [moe serve]: deepseek-moe-16b at its published widths and depth (28
+# layers, d = 2,048, 16 heads of 128, 64 routed experts top-6 of width
+# 1,408 plus 2 shared, vocab 102,400), f32 params (62.88 GiB), bf16
+# compute, 8 requests of 32 prompt tokens and 16 greedy tokens.  The
+# capacity C = ceil(T K 1.25 / E) is 30 slots an expert at the prefill
+# (T = 256), 31 for forward on prompt + 1 token and 1 at a decode step
+# (T = 8): a decode step drops assignments, as the reference's does.  So
+# the decode step is held against forward in a dropless f32 run
+# (capacity_factor = E / K, so C = T at every T; TF32 off), where the
+# routing is the same on both sides unless two router probabilities lie
+# within rounding of each other: the smallest gap between the 6th and 7th
+# probability over that step's routing decisions is reported beside it.
+# The planted routing faults (MOE_FAULTS) replace the router of that
+# decode step and must read above LM_ATOL.
+MOE_ARCH = "deepseek-moe-16b"
+MOE_FAULTS = ("top-k weights not renormalised",
+              "each token routed to expert (i + 1) mod E")
+
+
+def moe_routers():
+    """``transformer._route`` replacements: one recording the gap between
+    the K-th and (K+1)-th router probability of every token it routes,
+    and one planting each of :data:`MOE_FAULTS`."""
+    import torch
+    from repro_torch.models import transformer as tr
+    route, gaps = tr._route, []
+
+    def probs_of(x2d, router):
+        return torch.softmax((x2d @ router.to(x2d.dtype)).float(), dim=-1)
+
+    def recording(x2d, router, top_k):
+        top = torch.sort(probs_of(x2d, router), dim=-1,
+                         descending=True).values
+        gaps.append((top[:, top_k - 1] - top[:, top_k]).min())
+        return route(x2d, router, top_k)
+
+    def unnormalised(x2d, router, top_k):
+        w, i = torch.sort(probs_of(x2d, router), dim=-1, descending=True,
+                          stable=True)
+        return w[:, :top_k], i[:, :top_k]
+
+    def shifted(x2d, router, top_k):
+        w, i = route(x2d, router, top_k)
+        return w, (i + 1) % router.shape[-1]
+
+    return gaps, recording, {MOE_FAULTS[0]: unnormalised,
+                             MOE_FAULTS[1]: shifted}
+
+
+def moe_dropless_checks(params, prompts, cfg) -> dict:
+    """The dropless f32 run: its first decode step against f32
+    ``forward(prompt + token)``, the same step with each planted router
+    (and the unplanted one as the control), and the smallest top-K gap of
+    the step's routing decisions."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tr
+    moe = cfg.moe
+    f32 = dataclasses.replace(
+        cfg, dtype=torch.float32, moe=dataclasses.replace(
+            moe, capacity_factor=moe.n_experts / moe.top_k))
+    B, S = prompts.shape
+    lengths = torch.full((B,), S, dtype=torch.int64, device=prompts.device)
+    gaps, recording, faults = moe_routers()
+    route = tr._route
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        with torch.inference_mode():
+            last, cache = tr.prefill(params, prompts, f32, max_len=S + 1)
+            token = torch.argmax(last, -1)[:, None]
+            want = tr.forward(params, torch.cat([prompts, token], 1),
+                              f32)[:, -1]
+            # each decode step writes slot S of the cache before reading
+            # it, so the planted steps share one prefill
+            for name, plant in [("control", recording), *faults.items()]:
+                tr._route = plant
+                logits, _ = tr.decode_step(params, cache, token, lengths,
+                                           f32)
+                out[name] = float((logits - want).abs().max())
+    finally:
+        tr._route = route
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return dict(errs=out, min_topk_gap=float(min(gaps)),
+                decisions=len(gaps) * B, max_abs_logit=float(
+                    want.abs().max()))
+
+
+def moe_phase(header: str) -> dict:
+    """``[moe serve]``: ``repro_torch.launch.serve`` at deepseek-moe-16b's
+    published widths and depth on the card (its CLI entry in this
+    process, then the checked run on the same seed): (a) the bf16 prefill
+    against bf16 ``forward`` on the prompts (the same T, so the same
+    routing and drops), (b) the dropless f32 decode step against f32
+    ``forward(prompt + token)`` with the smallest top-K gap, (c) the
+    planted routing faults above ``LM_ATOL`` while the control stays
+    under it, (d) every id in ``[0, padded_vocab)`` and two runs'
+    tokens equal; the bf16 prefill against an f32 ``forward`` reported,
+    not gated; init time, peak memory, prefill and decode tok/s and the
+    busy share of one profiled run; then the reduced deepseek-moe-16b and
+    dbrx-132b configs on the card against the port's CPU run."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+    torch.cuda.empty_cache()
+    cfg = configs.get(MOE_ARCH).full
+    moe = cfg.moe
+    out = {"arch": MOE_ARCH, "num_params": cfg.num_params(),
+           "active_params": cfg.active_params(),
+           "capacity": {T: tr.capacity(moe, T) for T in (
+               LM_REQUESTS * LM_PROMPT, LM_REQUESTS * (LM_PROMPT + 1),
+               LM_REQUESTS)}}
+    argv = ["--arch", MOE_ARCH, "--full", "--requests", str(LM_REQUESTS),
+            "--prompt-len", str(LM_PROMPT), "--tokens", str(LM_TOKENS)]
+    cli = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli):
+        serve.main(argv)
+    out["cli"] = dict(wall_s=time.perf_counter() - t0,
+                      stdout=cli.getvalue().strip().splitlines())
+    log(f"[moe serve] python -m repro_torch.launch.serve {' '.join(argv)} "
+        f"({out['cli']['wall_s']:.1f} s): " + " | ".join(out["cli"]["stdout"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    t0 = time.perf_counter()
+    params, prompts = serve.make_inputs(cfg, LM_REQUESTS, LM_PROMPT, "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params_bytes"] = params_bytes(params)
+    runs = [serve.generate(params, prompts, cfg, LM_TOKENS)
+            for _ in range(3)]  # cold, then two warm
+    peak = torch.cuda.max_memory_allocated() - held
+    busy = device_busy(f"{MOE_ARCH} generate", lambda: serve.generate(
+        params, prompts, cfg, LM_TOKENS), tag="[moe serve]")
+    busy.pop("result")
+    log("[moe serve] top device kernels of the profiled run: " + ", ".join(
+        f"{name[:60]} {sec:.4f} s" for name, sec in busy["top_kernels"]))
+    gen = runs[0]
+    same = all(torch.equal(r.tokens, gen.tokens) for r in runs[1:])
+    bad = int(((gen.tokens < 0) | (gen.tokens >= cfg.padded_vocab)).sum())
+    with torch.inference_mode():
+        ref_last = tr.forward(params, prompts, cfg)[:, -1]
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        ref32 = tr.forward(params, prompts, f32)[:, -1]
+    err_prefill = float((gen.prefill_logits - ref_last).abs().max())
+    err_f32 = float((gen.prefill_logits - ref32).abs().max())
+    dropless = moe_dropless_checks(params, prompts, cfg)
+    faults = dropless["errs"]
+    B = LM_REQUESTS
+    timing = [dict(prefill_s=r.prefill_s, decode_s=r.decode_s,
+                   prefill_tok_s=B * LM_PROMPT / r.prefill_s,
+                   decode_tok_s=B * (LM_TOKENS - 1) / r.decode_s)
+              for r in runs]
+    out.update(runs=timing, peak_bytes=peak, busy=busy, bad_ids=bad,
+               tokens_equal=same, err_prefill=err_prefill,
+               err_bf16_vs_f32=err_f32, dropless=dropless,
+               max_abs_logit=float(ref_last.abs().max()), atol=LM_ATOL,
+               sample=gen.tokens[0].tolist())
+    w = timing[-1]
+    log(f"[moe serve] {MOE_ARCH} full width ({cfg.n_layers} layers, d="
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, {moe.n_experts}"
+        f" routed experts top-{moe.top_k} of width {moe.d_expert} + "
+        f"{moe.n_shared} shared, padded vocab {cfg.padded_vocab}; "
+        f"{out['params_bytes'] / 2**30:.2f} GiB f32 params, init "
+        f"{out['init_s']:.2f} s; capacity {out['capacity']} slots an expert "
+        f"by T): {B} x {LM_PROMPT} prompt + {LM_TOKENS} greedy tokens; cold "
+        f"prefill {timing[0]['prefill_s']:.3f} s decode "
+        f"{timing[0]['decode_s']:.3f} s; warm prefill {w['prefill_s']:.4f} s "
+        f"({w['prefill_tok_s']:.1f} tok/s), decode {w['decode_s']:.4f} s "
+        f"({w['decode_tok_s']:.1f} tok/s); peak {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated over what earlier phases hold); "
+        f"{header}")
+    log(f"[moe serve] (a) |bf16 prefill - bf16 forward| {err_prefill:.5f}; "
+        f"(b) dropless f32 |decode step 1 - forward(prompt + token)| "
+        f"{faults['control']:.5f} (atol {LM_ATOL} each; max |logit| "
+        f"{dropless['max_abs_logit']:.3f}), smallest gap between the "
+        f"{moe.top_k}th and {moe.top_k + 1}th router probability over its "
+        f"{dropless['decisions']} routing decisions "
+        f"{dropless['min_topk_gap']:.3e}; (d) ids outside [0, "
+        f"{cfg.padded_vocab}): {bad}, three runs' tokens equal: {same}; "
+        f"sample {out['sample'][:10]}")
+    log("[moe serve] (c) planted routing faults in the dropless decode "
+        "step, |decode step 1 - forward(prompt + token)| (each must exceed "
+        "the atol): " + ", ".join(f"{name} {faults[name]:.5f}"
+                                 for name in MOE_FAULTS))
+    log(f"[moe serve] not gated: |bf16 prefill - f32 forward| {err_f32:.5f}"
+        f" (routing is discontinuous: a one-ulp change of a router logit "
+        f"flips an expert choice, so bf16 and f32 may route differently)")
+    if bad or not same:
+        fail("[moe serve] ids outside the vocab, or a second run generated "
+             "other tokens")
+    if not max(err_prefill, faults["control"]) <= LM_ATOL:
+        fail("[moe serve] the full-width MoE serve run disagrees with "
+             "forward")
+    if not all(faults[name] > LM_ATOL for name in MOE_FAULTS):
+        fail(f"[moe serve] LM_ATOL does not tell the planted routing faults "
+             f"from the unfaulted step: {faults}")
+    del params, runs, gen, ref_last, ref32
+    torch.cuda.empty_cache()
+    reduced_vs_cpu((MOE_ARCH, "dbrx-132b"), "[moe serve]", out)
+    return out
+
+
+# [train]: granite-3-8b at its published widths (d = 4,096, 32 / 8 heads
+# of 128, d_ff = 12,800, padded vocab 49,664) cut to 8 of its 40 layers
+# (1,996,582,912 params: f32 params, grads and AdamW moments take 29.75
+# GiB; all 40 layers would take 134 GB), the train_4k cell's seq_len of
+# 4,096, a global batch of 4 in M = 2 microbatches, remat on, 3 steps of
+# launch.steps' train step through the port's TrainLoop.  TRAIN_REL bounds
+# step 0's bf16 loss and grad norm against an f32 pass on the same params
+# and batch, relative: on the reduced granite, deepseek-moe, gemma3 and
+# nemotron configs (3 seeds each, B = 4, S = 64, M = 2, on a CPU) the
+# largest readings were 6.8e-4 (loss) and 8.5e-3 (grad norm), and the
+# bounds are about 7 and 6 times those.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_MICRO = "granite-3-8b", 8, 4, 2
+TRAIN_STEPS = 3
+TRAIN_REL = {"loss": 5e-3, "grad_norm": 5e-2}
+# the launcher's crash and resume, and the reduced configs card vs CPU
+TRAIN_CLI_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 8, 5, 2
+TRAIN_SMALL_STEPS = 5
+# the example twin's steps (its default is 300; a fresh process spends
+# about 20 s starting on the card, and 100 steps show the loss falling)
+TRAIN_TWIN_STEPS = 100
+
+
+def run_modules(jobs, timeout=600):
+    """Each ``(module, argv, expect_rc)`` of ``jobs`` as ``python -m MODULE
+    ARGV`` (or a script path) in a fresh process (:func:`child_env`), all
+    started at once and reaped in order; fails unless each exits as
+    expected (0, or non-zero for ``expect_rc=1``), and kills any process
+    still running when it leaves.  Returns (stdout, stderr, wall s) a
+    job, the wall until the job is reaped."""
+    procs = []
+    try:
+        for module, argv, _ in jobs:
+            cmd = [sys.executable, *(["-m", module] if not
+                                     module.endswith(".py") else [module]),
+                   *argv]
+            procs.append((cmd, time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=child_env(), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        outs = []
+        for (cmd, t0, proc), (module, _, expect_rc) in zip(procs, jobs):
+            stdout, stderr = proc.communicate(timeout=timeout)
+            wall = time.perf_counter() - t0
+            log(f"[train] {' '.join(cmd[1:])} ({wall:.1f} s, exit "
+                f"{proc.returncode}): "
+                + " | ".join(stdout.strip().splitlines()))
+            if (proc.returncode != 0) != (expect_rc != 0):
+                fail(f"{module} exited {proc.returncode}: {stderr[-2000:]}")
+            outs.append((stdout, stderr, wall))
+        return outs
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def train_launcher_checks(out: dict) -> None:
+    """The launcher and the example twin in fresh processes, four at once
+    on the card: the reduced granite-3-8b run uninterrupted, the same run
+    crashed at ``--fail-at`` with ``--ckpt-every`` (then resumed, its
+    final params equal to the uninterrupted run's bit for bit), the
+    reduced deepseek-moe-16b (the MoE backward), and
+    ``examples/train_lm_torch.py``, its final loss below its first."""
+    import numpy as np
+    import shutil
+    from repro_torch.checkpoint import restore_checkpoint
+    base = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_STEPS)]
+    root = ROOT / "build" / "smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    a, b = str(root / "whole"), str(root / "crashed")
+    every = ["--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    train = "repro_torch.launch.train"
+    whole, crash, moe_run, twin = run_modules([
+        (train, base + ["--ckpt-dir", a], 0),
+        (train, base + ["--ckpt-dir", b, *every,
+                        "--fail-at", str(TRAIN_FAIL_AT)], 1),
+        (train, ["--arch", MOE_ARCH, "--steps", "3"], 0),
+        (str(ROOT / "examples" / "train_lm_torch.py"),
+         ["--steps", str(TRAIN_TWIN_STEPS)], 0)])
+    if f"injected failure at step {TRAIN_FAIL_AT}" not in crash[1]:
+        fail(f"[train] the crashed run did not fail as planted: "
+             f"{crash[1][-500:]}")
+    (resume,) = run_modules([(train, base + ["--ckpt-dir", b, *every], 0)])
+    want, got = restore_checkpoint(a), restore_checkpoint(b)
+    equal = (want["step"] == got["step"] == TRAIN_CLI_STEPS
+             and set(want["tree"]) == set(got["tree"])
+             and all(np.array_equal(got["tree"][k], v)
+                     for k, v in want["tree"].items()))
+    moe_line = moe_run[0].strip().splitlines()[-1:] or [""]
+    out["launcher"] = dict(
+        wall_s={"whole": whole[2], "crash": crash[2], "resume": resume[2],
+                MOE_ARCH: moe_run[2], "example": twin[2]},
+        resume_bitwise_equal=equal, moe_stdout=moe_line[0])
+    log(f"[train] crash at step {TRAIN_FAIL_AT} (checkpoints every "
+        f"{TRAIN_CKPT_EVERY}), resumed to step {TRAIN_CLI_STEPS}: params, "
+        f"moments and count bitwise equal to the uninterrupted run's: "
+        f"{equal}")
+    if not equal:
+        fail("[train] the resumed run's params differ from the "
+             "uninterrupted run's on the card")
+    if not moe_line[0].startswith("done at step 3 on cuda"):
+        fail(f"[train] the deepseek-moe-16b launcher run: {moe_line[0]!r}")
+    last = twin[0].strip().splitlines()[-1]
+    m = re.match(r"first loss ([\d.]+); finished at step (\d+): "
+                 r"loss=([\d.]+)", last)
+    if m is None or not float(m.group(3)) < float(m.group(1)):
+        fail(f"[train] the example twin did not lower its loss: {last!r}")
+    out["example"] = dict(first_loss=float(m.group(1)),
+                          final_loss=float(m.group(3)))
+
+
+def train_small_vs_cpu(out: dict) -> None:
+    """The reduced granite-3-8b and deepseek-moe-16b configs, f32 with TF32
+    off, trained :data:`TRAIN_SMALL_STEPS` steps of ``launch.steps``' step
+    on the card and on the CPU from the same params and batches: losses
+    and final params within :data:`LM_SMALL_TOL`."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw_init, tree_leaves
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in (TRAIN_ARCH, MOE_ARCH):
+            spec = configs.get(arch)
+            spec = dataclasses.replace(spec, reduced=dataclasses.replace(
+                spec.reduced, dtype=torch.float32))
+            ts = steps.lm_train_cell(spec, spec.cells["train_4k"],
+                                     reduced=True)
+            gen = torch.Generator()
+            gen.manual_seed(1)
+            cpu_p = tr.init_params(gen, ts.cfg, "cpu")
+            card_p = to_card(cpu_p)
+            cpu_o, card_o = adamw_init(cpu_p), adamw_init(card_p)
+            pipe = LMDataPipeline(vocab=ts.cfg.vocab, batch=ts.batch,
+                                  seq_len=ts.seq_len)
+            losses = []
+            for _ in range(TRAIN_SMALL_STEPS):
+                batch = pipe.next_batch()
+                cpu_p, cpu_o, cm = ts.step_fn(cpu_p, cpu_o, batch)
+                card_p, card_o, gm = ts.step_fn(card_p, card_o, batch)
+                losses.append((float(gm["loss"]), float(cm["loss"])))
+            err_loss = max(abs(a - b) for a, b in losses)
+            err_p = max(float((a.detach().cpu() - b.detach()).abs().max())
+                        for a, b in zip(tree_leaves(card_p),
+                                        tree_leaves(cpu_p)))
+            ok = all(abs(a - b) <= LM_SMALL_TOL["atol"]
+                     + LM_SMALL_TOL["rtol"] * abs(b) for a, b in losses) \
+                and all(torch.allclose(a.detach().cpu(), b.detach(),
+                                       **LM_SMALL_TOL)
+                        for a, b in zip(tree_leaves(card_p),
+                                        tree_leaves(cpu_p)))
+            out[f"reduced {arch}"] = dict(losses=losses, err_loss=err_loss,
+                                          err_params=err_p)
+            log(f"[train] reduced {arch} f32, {TRAIN_SMALL_STEPS} steps on "
+                f"the card vs the CPU: losses {[round(a, 5) for a, _ in losses]}"
+                f", |loss| {err_loss:.2e}, |params| {err_p:.2e}")
+            if not ok:
+                fail(f"[train] reduced {arch}: the card's training differs "
+                     f"from the CPU's beyond {LM_SMALL_TOL}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def train_phase(header: str) -> dict:
+    """``[train]``: granite-3-8b at its published widths, 8 layers, 3 steps
+    at seq 4,096 through ``TrainLoop`` and ``launch.steps``: step time,
+    tokens/s, peak memory and the busy share of one profiled step; loss,
+    grad norm and lr finite, step 0's bf16 loss and grad norm within
+    :data:`TRAIN_REL` of an f32 pass; then the launcher's runs, crash and
+    resume and the example twin (:func:`train_launcher_checks`), after
+    the reduced configs against the CPU (:func:`train_small_vs_cpu`)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+    torch.cuda.empty_cache()
+    spec = configs.get(TRAIN_ARCH)
+    spec = dataclasses.replace(spec, full=dataclasses.replace(
+        spec.full, n_layers=TRAIN_LAYERS))
+    cell = spec.cells["train_4k"]
+    cell = dataclasses.replace(cell, dims=dict(cell.dims,
+                                               global_batch=TRAIN_BATCH))
+    ts = steps.lm_train_cell(spec, cell, microbatches=TRAIN_MICRO)
+    cfg = ts.cfg
+    B, S, M = ts.batch, ts.seq_len, ts.microbatches
+    out = {"arch": TRAIN_ARCH, "cut": f"{TRAIN_LAYERS} of "
+           f"{configs.get(TRAIN_ARCH).full.n_layers} layers",
+           "num_params": cfg.num_params(), "batch": B, "seq_len": S,
+           "microbatches": M, "remat": cfg.remat}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = tr.init_params(gen, cfg, "cuda")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    pipe_kw = dict(vocab=cfg.vocab, batch=B, seq_len=S)
+    # the f32 pass on step 0's params and batch, before any update
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        loss32, g32 = steps.loss_and_grads(
+            params, LMDataPipeline(**pipe_kw).next_batch(),
+            dataclasses.replace(cfg, dtype=torch.float32), M)
+        f32 = {"loss": float(loss32), "grad_norm": float(global_norm(g32)),
+               "s": time.perf_counter() - t0}
+        del g32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    metrics, times = [], []
+
+    def timed_step(p, o, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = ts.step_fn(p, o, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return p, o, m
+
+    pipe = LMDataPipeline(**pipe_kw)
+    loop = TrainLoop(TrainLoopConfig(total_steps=TRAIN_STEPS), timed_step,
+                     params, opt, pipe)
+    loop.run()
+    peak = torch.cuda.max_memory_allocated() - held
+    busy = device_busy(f"{TRAIN_ARCH} train step", lambda: ts.step_fn(
+        loop.params, loop.opt_state, pipe.next_batch()), tag="[train]")
+    busy.pop("result")
+    log("[train] top device kernels of the profiled step: " + ", ".join(
+        f"{name[:60]} {sec:.4f} s" for name, sec in busy["top_kernels"]))
+    rel = {k: abs(metrics[0][k] / f32[k] - 1) for k in TRAIN_REL}
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    out.update(step_s=times, tokens_per_s=[B * S / t for t in times],
+               metrics=metrics, f32_step0=f32, rel_bf16_vs_f32=rel,
+               bound=TRAIN_REL, peak_bytes=peak, busy=busy)
+    log(f"[train] {TRAIN_ARCH} full width cut to {TRAIN_LAYERS} of "
+        f"{configs.get(TRAIN_ARCH).full.n_layers} layers (d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff={cfg.d_ff}, padded vocab "
+        f"{cfg.padded_vocab}; {cfg.num_params():,} params, init "
+        f"{out['init_s']:.2f} s), seq {S}, batch {B} in {M} microbatches, "
+        f"remat {cfg.remat}: {TRAIN_STEPS} steps of "
+        + ", ".join(f"{t:.3f} s" for t in times)
+        + f" ({B * S / times[-1]:.0f} tokens/s at the last); peak "
+        f"{peak / 2**30:.2f} GiB; {header}")
+    log("[train] metrics: " + "; ".join(
+        f"step {i}: loss {m['loss']:.5f} grad norm {m['grad_norm']:.5f} lr "
+        f"{m['lr']:.3e}" for i, m in enumerate(metrics))
+        + f"; f32 pass on step 0: loss {f32['loss']:.5f} grad norm "
+        f"{f32['grad_norm']:.5f} ({f32['s']:.1f} s); bf16 vs f32 relative: "
+        f"loss {rel['loss']:.2e}, grad norm {rel['grad_norm']:.2e} (bounds "
+        f"{TRAIN_REL})")
+    if not finite:
+        fail("[train] a loss, grad norm or lr is not finite")
+    if not all(rel[k] <= TRAIN_REL[k] for k in TRAIN_REL):
+        fail(f"[train] step 0 in bf16 departs from the f32 pass: {rel}")
+    del loop, params, opt
+    torch.cuda.empty_cache()
+    train_small_vs_cpu(out)
+    train_launcher_checks(out)
     return out
 
 
@@ -3098,6 +3616,10 @@ def main(argv=None) -> int:
     log(f"[time] [truss] done at {time.perf_counter() - t_start:.1f} s")
     lm_runs = lm_phase(header)
     log(f"[time] [lm serve] done at {time.perf_counter() - t_start:.1f} s")
+    moe_runs = moe_phase(header)
+    log(f"[time] [moe serve] done at {time.perf_counter() - t_start:.1f} s")
+    train_runs = train_phase(header)
+    log(f"[time] [train] done at {time.perf_counter() - t_start:.1f} s")
 
     # -- summary -----------------------------------------------------------
     # each kernel's row: the bin with most launches on its path; launches
@@ -3149,6 +3671,7 @@ def main(argv=None) -> int:
              "persist": persist_runs, "tune": tune_runs,
              "wide": wide_runs, "delta": delta_runs, "serve": serve_runs,
              "baseline": baseline_runs, "truss": truss_runs, "lm": lm_runs,
+             "moe": moe_runs, "train": train_runs,
              "launches": count_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,

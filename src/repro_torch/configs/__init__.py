@@ -28,8 +28,6 @@ ASSIGNED = [k for k in _MODULES if k != "ebbkc"]
 
 #: archs whose model is not ported yet -> the ROADMAP item that ports it
 UNPORTED = {
-    "deepseek-moe-16b": "A13b (MoE)",
-    "dbrx-132b": "A13b (MoE)",
     "gin-tu": "A13d (GNN, equivariant and recsys families)",
     "nequip": "A13d (GNN, equivariant and recsys families)",
     "meshgraphnet": "A13d (GNN, equivariant and recsys families)",

@@ -1,1 +1,2 @@
-"""Model substrate of the port: the dense-LM transformer and its blocks."""
+"""Model substrate of the port: the transformer (dense and MoE FFN, the
+training loss) and its blocks."""

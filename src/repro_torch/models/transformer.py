@@ -1,16 +1,21 @@
-"""Decoder-only transformer: the dense-LM serving path of the reference's
-``models.transformer``, in torch.
+"""Decoder-only transformer: the reference's ``models.transformer`` on one
+device, in torch.
 
 * GQA attention + RoPE, causal, f32 softmax, chunked scores so a long
   prefill never materializes (S, S);
 * optional sliding-window "local" layers (gemma3's 5:1 local:global) --
   local layers only read a window-sized KV slice and keep a window-sized
   rolling KV cache;
-* dense FFN (gated silu/gelu or squared-ReLU);
+* dense FFN (gated silu/gelu or squared-ReLU) or MoE (shared + routed
+  fine-grained experts, top-k, capacity-based dispatch over every expert
+  on the device);
 * layers grouped by kind (every local layer before every global one, as
   the reference's ``layer_groups``), each group's weights stacked on a
   leading axis and run by a Python loop over the stack (the reference's
-  ``lax.scan``).
+  ``lax.scan``), each layer under activation checkpointing when
+  ``cfg.remat`` is set and grad is enabled;
+* the training loss with the head and cross-entropy chunked over the
+  sequence, each chunk checkpointed.
 
 Params are a dict with the reference's keys and stacked per-group shapes
 (``groups/<kind>/wq`` is (count, d, H, dh), ...), kept in f32; each
@@ -19,8 +24,8 @@ at a time.  The attention keeps the reference's formulation (scores in
 f32 with a -1e30 additive bias, softmax in f32 cast to ``v``'s dtype),
 so the port agrees with it within f32 rounding.
 
-Not here yet: the MoE FFN (a config with ``moe`` raises; ROADMAP A13b),
-the training loss and rematerialization (A13c), sharding (A13e).
+Not here: sharding (the reference's ``ShardCtx``, ``_gather_layer`` and
+the expert-parallel ``shard_map`` of ``moe_ffn``; ROADMAP A13e).
 """
 from __future__ import annotations
 
@@ -28,13 +33,14 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import act_fn, apply_rope, normal_init, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """Kept as data: the MoE FFN is not ported yet (ROADMAP A13b)."""
     n_experts: int
     top_k: int
     n_shared: int = 0
@@ -59,10 +65,10 @@ class TransformerConfig:
     local_per_global: int = 0        # 5 -> gemma-style 5:1; 0 -> all global
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    remat: bool = True               # training only (not ported yet)
+    remat: bool = True               # checkpoint each layer under grad
     q_block: int = 512               # query block for chunked attention
-    analysis_unroll: bool = False    # the reference's cost-analysis mode;
-    #   the port's loops are Python loops, so it changes nothing here
+    analysis_unroll: bool = False    # the reference's cost-analysis mode,
+    #   which belongs to its dry run (ROADMAP A13e); kept as data here
     groups_override: Any = None      # ((kind, count), ...) probe override
 
     @property
@@ -104,20 +110,13 @@ class TransformerConfig:
         return self.n_layers * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported to repro_torch yet "
-            "(ROADMAP A13b)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 def _init_layer_stack(gen: torch.Generator, cfg: TransformerConfig,
                       count: int, device) -> Dict[str, torch.Tensor]:
-    d, dh, f = cfg.d_model, cfg.d_head, cfg.d_ff
+    d, dh = cfg.d_model, cfg.d_head
     p = {
         "ln1": torch.zeros((count, d), device=device),
         "ln2": torch.zeros((count, d), device=device),
@@ -129,11 +128,29 @@ def _init_layer_stack(gen: torch.Generator, cfg: TransformerConfig,
                           device),
         "wo": normal_init(gen, (count, cfg.n_heads, dh, d),
                           (cfg.n_heads * dh) ** -0.5, device),
-        "w1": normal_init(gen, (count, d, f), d ** -0.5, device),
-        "w2": normal_init(gen, (count, f, d), f ** -0.5, device),
     }
-    if cfg.gated:
-        p["w3"] = normal_init(gen, (count, d, f), d ** -0.5, device)
+    if cfg.moe:
+        e = cfg.moe
+        fe = e.d_expert
+        p["router"] = normal_init(gen, (count, d, e.n_experts), d ** -0.5,
+                                  device)
+        p["we1"] = normal_init(gen, (count, e.n_experts, d, fe), d ** -0.5,
+                               device)
+        p["we3"] = normal_init(gen, (count, e.n_experts, d, fe), d ** -0.5,
+                               device)
+        p["we2"] = normal_init(gen, (count, e.n_experts, fe, d), fe ** -0.5,
+                               device)
+        if e.n_shared:
+            fs = e.n_shared * fe
+            p["ws1"] = normal_init(gen, (count, d, fs), d ** -0.5, device)
+            p["ws3"] = normal_init(gen, (count, d, fs), d ** -0.5, device)
+            p["ws2"] = normal_init(gen, (count, fs, d), fs ** -0.5, device)
+    else:
+        f = cfg.d_ff
+        p["w1"] = normal_init(gen, (count, d, f), d ** -0.5, device)
+        p["w2"] = normal_init(gen, (count, f, d), f ** -0.5, device)
+        if cfg.gated:
+            p["w3"] = normal_init(gen, (count, d, f), d ** -0.5, device)
     return p
 
 
@@ -141,7 +158,6 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
                 device) -> Dict:
     """f32 params on ``device`` (the reference's keys and shapes), drawn
     from ``gen``, which must live on ``device``."""
-    _dense_only(cfg)
     params = {
         "embed": normal_init(gen, (cfg.padded_vocab, cfg.d_model), 0.02,
                              device),
@@ -230,7 +246,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 
 
 # ---------------------------------------------------------------------------
-# FFN / layers / forward
+# FFN / MoE
 # ---------------------------------------------------------------------------
 
 def dense_ffn(x, p, cfg: TransformerConfig):
@@ -243,6 +259,100 @@ def dense_ffn(x, p, cfg: TransformerConfig):
     return h @ p["w2"].to(x.dtype)
 
 
+def _route(x2d, router, top_k: int):
+    """The router: logits in ``x2d``'s dtype, an f32 softmax over the
+    experts, the ``top_k`` largest probabilities renormalised to sum to 1.
+
+    Ties go to the lower expert id, as ``lax.top_k`` breaks them: the top
+    k is taken from a stable descending sort (``torch.topk`` promises no
+    order for ties, and bf16 logits tie often).  Returns (weights (T, K)
+    f32, experts (T, K) int64), each row in descending weight order.
+    """
+    logits = (x2d @ router.to(x2d.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :top_k], topi[:, :top_k]
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    return topw, topi
+
+
+def capacity(moe: MoEConfig, T: int) -> int:
+    """Slots an expert for T tokens: the reference's float floor
+    arithmetic on Python numbers, ``int(max(1, ceil(T K cf / E)))``."""
+    return int(max(1, -(-T * moe.top_k * moe.capacity_factor
+                        // moe.n_experts)))
+
+
+def _moe_dispatch_local(x2d, p, cfg: TransformerConfig):
+    """Capacity-based grouped-GEMM MoE over every expert on this device:
+    the reference's ``_moe_dispatch_local`` with ``e_loc = n_experts``,
+    ``e0 = 0`` and no psum.
+
+    x2d: (T, d).  The T * K assignments are sorted by expert (a stable
+    sort, as ``jnp.argsort``); an assignment's position in its expert's
+    group decides whether it fits the capacity C, computed from Python
+    numbers as the reference does.  Slot (e, c) of the (E, C, d) buffer
+    holds the token of expert e's c-th assignment (a gather: every kept
+    slot has one token, so this equals the reference's scatter-add), the
+    expert GEMMs run as three batched matmuls, and each token sums its
+    kept contributions, weighted, in ascending expert order (the order of
+    the reference's ``segment_sum`` over the sorted assignments), one add
+    at a time in ``x2d``'s dtype: a fixed order, so two runs give the same
+    bits (an ``index_add_`` would add in atomic order on the card).
+    Every shape comes from Python ints: no host sync.
+    """
+    moe = cfg.moe
+    T, d = x2d.shape
+    E, K = moe.n_experts, moe.top_k
+    a = act_fn(cfg.act)
+    dev = x2d.device
+    topw, topi = _route(x2d, p["router"], K)
+    flat_e = topi.reshape(-1)                                # (T*K,)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    experts = torch.arange(E, device=dev)
+    starts = torch.searchsorted(se, experts)
+    ends = torch.searchsorted(se, experts, right=True)
+    C = capacity(moe, T)
+    # dispatch: slot (e, c) <- the c-th assignment of expert e, if any
+    slot = starts[:, None] + torch.arange(C, device=dev)     # (E, C)
+    filled = slot < ends[:, None]
+    src = torch.div(order[slot.clamp_max(T * K - 1)], K,
+                    rounding_mode="floor")                   # token ids
+    buf = torch.where(filled[..., None], x2d[src], 0.0)      # (E, C, d)
+    h = a(torch.bmm(buf, p["we1"].to(x2d.dtype))) \
+        * torch.bmm(buf, p["we3"].to(x2d.dtype))
+    y = torch.bmm(h, p["we2"].to(x2d.dtype))                 # (E, C, d)
+    # combine: each assignment's position in its expert's group
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(T * K, device=dev) - starts[se]
+    pos = pos.reshape(T, K)
+    by_e = torch.argsort(topi, dim=-1)       # a token's experts ascending
+    ei, pi = topi.gather(1, by_e), pos.gather(1, by_e)
+    wi = ((pi < C) * topw.gather(1, by_e)).to(x2d.dtype)
+    yt = y[ei, pi.clamp_max(C - 1)] * wi[..., None]          # (T, K, d)
+    out = yt[:, 0]
+    for k in range(1, K):
+        out = out + yt[:, k]
+    return out
+
+
+def moe_ffn(x, p, cfg: TransformerConfig):
+    """Routed experts plus the shared experts, if any: x (B, S, d)."""
+    B, S, d = x.shape
+    x2d = x.reshape(B * S, d)
+    out = _moe_dispatch_local(x2d, p, cfg)
+    if cfg.moe.n_shared:
+        a = act_fn(cfg.act)
+        h = a(x2d @ p["ws1"].to(x.dtype)) * (x2d @ p["ws3"].to(x.dtype))
+        out = out + h @ p["ws2"].to(x.dtype)
+    return out.reshape(B, S, d)
+
+
+# ---------------------------------------------------------------------------
+# layers / forward / loss
+# ---------------------------------------------------------------------------
+
 def _qkv(h, p, cfg: TransformerConfig, positions):
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"].to(h.dtype))
@@ -253,7 +363,8 @@ def _qkv(h, p, cfg: TransformerConfig, positions):
 
 def _out_ffn(x, o, p, cfg: TransformerConfig):
     x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
-    return x + dense_ffn(rms_norm(x, p["ln2"]), p, cfg)
+    h = rms_norm(x, p["ln2"])
+    return x + (moe_ffn(h, p, cfg) if cfg.moe else dense_ffn(h, p, cfg))
 
 
 def _layer(x, p, cfg: TransformerConfig, kind: str):
@@ -269,10 +380,16 @@ def _layer(x, p, cfg: TransformerConfig, kind: str):
     return _out_ffn(x, o, p, cfg), k, v
 
 
+def _layer_out(x, p, cfg: TransformerConfig, kind: str):
+    return _layer(x, p, cfg, kind)[0]
+
+
 def _layers(stack: Dict[str, torch.Tensor], count: int):
-    """The per-layer views of one group's stacked weights, in order."""
+    """The per-layer views of one group's stacked weights, in order
+    (``unbind``: under autograd one node stacks the layers' grads)."""
+    views = {name: w.unbind(0) for name, w in stack.items()}
     for i in range(count):
-        yield {name: w[i] for name, w in stack.items()}
+        yield {name: v[i] for name, v in views.items()}
 
 
 def _head(x, params):
@@ -281,18 +398,69 @@ def _head(x, params):
 
 
 def forward_hidden(params, tokens, cfg: TransformerConfig):
-    """tokens (B, S) -> final hidden states (B, S, d)."""
-    _dense_only(cfg)
+    """tokens (B, S) -> final hidden states (B, S, d).
+
+    With ``cfg.remat`` and grad enabled, each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+    scan body): the backward pass recomputes it from its input.
+    """
     x = params["embed"][tokens].to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     for kind, count in cfg.layer_groups:
         for lp in _layers(params["groups"][kind], count):
-            x = _layer(x, lp, cfg, kind)[0]
+            if remat:
+                x = checkpoint(_layer_out, x, lp, cfg, kind,
+                               use_reentrant=False)
+            else:
+                x = _layer_out(x, lp, cfg, kind)
     return rms_norm(x, params["final_ln"])
 
 
 def forward(params, tokens, cfg: TransformerConfig):
     """tokens (B, S) -> f32 logits (B, S, padded_vocab)."""
     return _head(forward_hidden(params, tokens, cfg), params)
+
+
+def _chunk_nll(xc, lb, head):
+    """(summed nll, token count) of one sequence chunk, both f32."""
+    logits = torch.einsum("bsd,dv->bsv", xc, head.to(xc.dtype)).float()
+    mask = (lb >= 0).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb.clamp_min(0)[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, loss_chunk: int = 1024):
+    """Causal LM loss with sequence-chunked head + cross-entropy.
+
+    ``batch``: ``tokens`` and ``labels`` (B, S) int tensors, labels of -100
+    masked.  The (B, S, vocab) logits are never materialized: the head
+    matmul and log-softmax run per chunk, and under grad each chunk is
+    checkpointed (the reference's ``@jax.checkpoint`` chunk body), so
+    only one chunk's f32 logits live at a time.  Returns the mean nll
+    over unmasked tokens, f32.
+    """
+    x = forward_hidden(params, batch["tokens"], cfg)
+    labels = batch["labels"]
+    B, S, d = x.shape
+    ck = min(loss_chunk, S)
+    nchunk = -(-S // ck)
+    pad = nchunk * ck - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-100)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_tok = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nchunk):
+        xc, lb = x[:, i * ck:(i + 1) * ck], labels[:, i * ck:(i + 1) * ck]
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_chunk_nll, xc, lb, params["head"],
+                                use_reentrant=False)
+        else:
+            nll, n = _chunk_nll(xc, lb, params["head"])
+        nll_sum = nll_sum + nll
+        n_tok = n_tok + n
+    return nll_sum / torch.clamp_min(n_tok, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +486,6 @@ def decode_step(params, cache, tokens, lengths, cfg: TransformerConfig):
     place.  A local layer's cache is a rolling buffer: position p lives in
     slot p % Sc, and its valid length is min(lengths + 1, Sc).
     """
-    _dense_only(cfg)
     B = tokens.shape[0]
     bidx = torch.arange(B, device=tokens.device)
     x = params["embed"][tokens].to(cfg.dtype)     # (B,1,d)
@@ -346,7 +513,6 @@ def prefill(params, tokens, cfg: TransformerConfig, max_len: int):
     A local group's rolling buffer takes positions S - take .. S - 1 into
     slots p % Sc, the slots decode reads.
     """
-    _dense_only(cfg)
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len, tokens.device)
     x = params["embed"][tokens].to(cfg.dtype)

@@ -24,7 +24,8 @@ BINS = (32, 64, 128, 256)
 ROOT = Path(__file__).resolve().parents[1]
 # the port's twins of the reference's examples
 EXAMPLE_TWINS = [ROOT / "examples" / "quickstart_torch.py",
-                 ROOT / "examples" / "clique_service_torch.py"]
+                 ROOT / "examples" / "clique_service_torch.py",
+                 ROOT / "examples" / "train_lm_torch.py"]
 
 
 def words(seed, shape):
@@ -129,7 +130,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.core.truss_torch", "repro_torch.configs.__init__",
             "repro_torch.configs.granite_3_8b", "repro_torch.models.common",
             "repro_torch.models.transformer",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.launch.steps", "repro_torch.optim.adamw",
+            "repro_torch.runtime.train_loop", "repro_torch.data.lm",
+            "repro_torch.configs.deepseek_moe_16b"} <= set(mods)
     examples = [str(p) for p in EXAMPLE_TWINS]
     code = ("import sys, importlib, importlib.util\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -1067,3 +1067,147 @@ def test_new_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "granite-3-8b", "--requests", "1",
                     "--tokens", "2"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+def test_reduced_moe_on_card_matches_cpu(cuda, arch):
+    """The MoE serving path, f32 with TF32 off, the same params on both:
+    logits within rtol 1e-4 / atol 1e-4, greedy tokens equal."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+    cfg = dataclasses.replace(configs.get(arch).reduced, dtype=torch.float32)
+    params, prompts = serve.make_inputs(cfg, 4, 24, "cpu", seed=1)
+    on_card = {k: v.to(cuda) for k, v in params.items() if k != "groups"}
+    on_card["groups"] = {kind: {n: w.to(cuda) for n, w in stack.items()}
+                         for kind, stack in params["groups"].items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = serve.generate(params, prompts, cfg, 6)
+        got = serve.generate(on_card, prompts.to(cuda), cfg, 6)
+        logits = tr.forward(on_card, prompts.to(cuda), cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in ((got.prefill_logits, want.prefill_logits),
+                 (got.decode_logits, want.decode_logits),
+                 (logits, tr.forward(params, prompts, cfg))):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+
+
+def test_moe_routing_ties_and_combine_on_card(cuda):
+    """On the card: tied router probabilities go to the lower expert id
+    (the stable sort), the bf16 dispatch gives the same bits twice (a
+    fixed combine order, no atomics), and the f32 dispatch (TF32 off)
+    equals the CPU's within rtol 1e-4 / atol 1e-5."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+    cfg = configs.get("deepseek-moe-16b").reduced
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    lp = {k: v[0] for k, v in
+          tr.init_params(gen, cfg, cuda)["groups"]["global"].items()}
+    x = torch.randn(256, cfg.d_model, generator=gen, device=cuda)
+    router = lp["router"].clone()
+    router[:, 1::2] = router[:, 0::2]
+    _, idx = tr._route(x, router, cfg.moe.top_k)
+    assert bool((idx[:, 0] % 2 == 0).all())
+    assert bool((idx[:, 1] == idx[:, 0] + 1).all())
+    xb = x.bfloat16()
+    a = tr._moe_dispatch_local(xb, lp, cfg)
+    b = tr._moe_dispatch_local(xb, lp, cfg)
+    assert torch.equal(a, b)
+    cpu = tr._moe_dispatch_local(
+        x.cpu(), {k: v.cpu() for k, v in lp.items()},
+        dataclasses.replace(cfg, dtype=torch.float32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = tr._moe_dispatch_local(x, lp, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "deepseek-moe-16b"])
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """``launch.steps``' train step (reduced config, f32, TF32 off), 3 steps
+    on the card and on the CPU from the same params and batches: losses
+    and params within rtol 1e-4 / atol 1e-4, ``count`` an int32 on the
+    card."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw_init, tree_leaves
+    spec = configs.get(arch)
+    spec = dataclasses.replace(spec, reduced=dataclasses.replace(
+        spec.reduced, dtype=torch.float32))
+    ts = steps.lm_train_cell(spec, spec.cells["train_4k"], reduced=True)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    cpu_p = tr.init_params(gen, ts.cfg, "cpu")
+    card_p = {k: v.to(cuda) for k, v in cpu_p.items() if k != "groups"}
+    card_p["groups"] = {kind: {n: w.to(cuda) for n, w in stack.items()}
+                        for kind, stack in cpu_p["groups"].items()}
+    cpu_o, card_o = adamw_init(cpu_p), adamw_init(card_p)
+    pipe = LMDataPipeline(vocab=ts.cfg.vocab, batch=ts.batch,
+                          seq_len=ts.seq_len)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(3):
+            batch = pipe.next_batch()
+            cpu_p, cpu_o, cm = ts.step_fn(cpu_p, cpu_o, batch)
+            card_p, card_o, gm = ts.step_fn(card_p, card_o, batch)
+            np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), rtol=1e-4, atol=1e-4)
+    assert card_o["count"].dtype == torch.int32 and int(card_o["count"]) == 3
+
+
+def test_train_launcher_resumes_bitwise_on_card(cuda, tmp_path):
+    """``launch.train`` on the card: a run crashed at step 5 (checkpoints
+    every 2) and resumed ends on the bits of an uninterrupted run."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import train
+    base = ["--arch", "deepseek-moe-16b", "--steps", "7"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    assert train.main(base + ["--ckpt-dir", a]) == 0
+    with pytest.raises(RuntimeError, match="injected failure at step 5"):
+        train.main(base + ["--ckpt-dir", b, "--ckpt-every", "2",
+                           "--fail-at", "5"])
+    assert train.main(base + ["--ckpt-dir", b, "--ckpt-every", "2"]) == 0
+    want, got = restore_checkpoint(a), restore_checkpoint(b)
+    assert want["step"] == got["step"] == 7
+    for k, v in want["tree"].items():
+        np.testing.assert_array_equal(got["tree"][k], v)
+
+
+def test_train_twin_runs_on_card(cuda):
+    """``examples/train_lm_torch.py`` with its default device (the card):
+    exit 0 and the final loss below the first."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "examples" / "train_lm_torch.py"),
+         "--steps", "60"], env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    last = out.stdout.strip().splitlines()[-1]
+    first = float(last.split("first loss ")[1].split(";")[0])
+    assert float(last.split("loss=")[1].split(" ")[0]) < first
+    assert "on cuda" in out.stdout

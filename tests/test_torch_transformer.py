@@ -333,11 +333,25 @@ def test_layer_groups_put_local_before_global():
 
 
 def test_moe_config_raises_not_implemented():
-    moe = tr.MoEConfig(n_experts=4, top_k=2, n_shared=1, d_expert=16)
-    cfg = tiny_cfg(moe=moe)
+    """An MoE config, which raised before its FFN was ported, now draws
+    the MoE keys in place of the dense FFN's and runs: prefill equals
+    forward's last position, and a dropless decode step equals forward on
+    the prompt plus that token (f32)."""
+    moe = tr.MoEConfig(n_experts=4, top_k=2, n_shared=1, d_expert=16,
+                       capacity_factor=2.0)     # E / K: nothing drops
+    cfg = tiny_cfg(moe=moe, dtype=torch.float32, q_block=64)
     assert cfg.active_params() < cfg.num_params()
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tiny_params(cfg)
+    p = tiny_params(cfg)
+    stack = p["groups"]["global"]
+    assert {"router", "we1", "we3", "we2", "ws1", "ws3", "ws2"} <= set(stack)
+    assert not {"w1", "w2", "w3"} & set(stack)
+    t = tiny_tokens((2, 12), 64)
+    last, cache = tr.prefill(p, t, cfg, max_len=16)
+    close(last, tr.forward(p, t, cfg)[:, -1], rtol=1e-5, atol=1e-5)
+    nxt = torch.argmax(last, -1)[:, None]
+    step, _ = tr.decode_step(p, cache, nxt, torch.full((2,), 12), cfg)
+    close(step, tr.forward(p, torch.cat([t, nxt], 1), cfg)[:, -1],
+          rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +360,7 @@ def test_moe_config_raises_not_implemented():
 
 @pytest.mark.parametrize("arch", sorted(configs.UNPORTED))
 def test_registry_raises_for_unported_arch(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item A13[bd]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item A13d"):
         configs.get(arch)
 
 
@@ -355,7 +369,11 @@ def test_registry_resolves_ported_archs():
     assert configs.ASSIGNED == jconfigs.ASSIGNED
     specs = configs.all_specs()
     assert set(specs) == {"granite-3-8b", "nemotron-4-15b", "gemma3-27b",
-                          "ebbkc"}
+                          "deepseek-moe-16b", "dbrx-132b", "ebbkc"}
+    assert {specs[a].full.moe.n_experts for a in
+            ("deepseek-moe-16b", "dbrx-132b")} == {64, 16}
+    assert set(configs.UNPORTED) == {"gin-tu", "nequip", "meshgraphnet",
+                                     "egnn", "dcn-v2"}
     assert specs["ebbkc"].family == "clique"
     assert cells(specs["ebbkc"]) == cells(jconfigs.get("ebbkc"))
     with pytest.raises(KeyError):
@@ -374,7 +392,8 @@ def test_ebbkc_config_imports_no_model():
     assert out.stdout.strip() == "False"
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma3-27b",
+                                  "deepseek-moe-16b"])
 def test_serve_launcher_runs_on_cpu(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
