@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port's copy of the reference registry, with the same names.  An arch
-whose model family the port does not run yet raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The port's copy of the reference registry, with the same names.  Every
+arch of the reference resolves; an arch listed in :data:`UNPORTED` (none
+now) would raise ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -27,13 +28,7 @@ _MODULES = {
 ASSIGNED = [k for k in _MODULES if k != "ebbkc"]
 
 #: archs whose model is not ported yet -> the ROADMAP item that ports it
-UNPORTED = {
-    "gin-tu": "A13d (GNN, equivariant and recsys families)",
-    "nequip": "A13d (GNN, equivariant and recsys families)",
-    "meshgraphnet": "A13d (GNN, equivariant and recsys families)",
-    "egnn": "A13d (GNN, equivariant and recsys families)",
-    "dcn-v2": "A13d (GNN, equivariant and recsys families)",
-}
+UNPORTED: Dict[str, str] = {}
 
 
 def get(name: str) -> ArchSpec:

@@ -37,25 +37,30 @@ def batch_to_torch(A_u32: np.ndarray, cand_u32: np.ndarray, device
             cand.pin_memory().to(device, non_blocking=True))
 
 
-def lm_params_to_torch(np_params: Any, device,
-                       dtype: torch.dtype = torch.float32) -> Any:
-    """The reference transformer's params (or optimizer state), as nested
-    dicts (and lists) of numpy arrays, -> the same tree of tensors on
+def params_to_torch(np_params: Any, device,
+                    dtype: torch.dtype = torch.float32) -> Any:
+    """A reference model's params (or optimizer state), as nested dicts
+    (and lists) of numpy arrays, -> the same tree of tensors on
     ``device``: floating leaves as ``dtype``, integer leaves (AdamW's
     0-d int32 ``count``) at their own dtype.
 
-    The port's ``models.transformer`` keeps the reference's keys and
-    stacked shapes (the MoE keys ``router``, ``we1``/``we3``/``we2`` and
-    ``ws1``/``ws3``/``ws2`` too), so the map is key for key.
+    Every model family of the port keeps the reference's keys and
+    shapes (the transformer's stacked layers and MoE keys, the GNNs'
+    layer lists, NequIP's ``self`` weights keyed by ``str(l)``, DCN-v2's
+    table), so the map is key for key.
     """
     if isinstance(np_params, dict):
-        return {k: lm_params_to_torch(v, device, dtype)
+        return {k: params_to_torch(v, device, dtype)
                 for k, v in np_params.items()}
     if isinstance(np_params, (list, tuple)):
-        return type(np_params)(lm_params_to_torch(v, device, dtype)
+        return type(np_params)(params_to_torch(v, device, dtype)
                                for v in np_params)
     arr = np.asarray(np_params)
     if np.issubdtype(arr.dtype, np.integer):
         return torch.from_numpy(np.array(arr)).to(torch.device(device))
     return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
         device=torch.device(device), dtype=dtype)
+
+
+#: the name the LM callers use
+lm_params_to_torch = params_to_torch

@@ -5,10 +5,14 @@ tau/delta well below 1 (Table 1's social/web graphs), planted-clique graphs
 approach tau ~ delta (the dense DB/CI/WE family).
 
 The port's copy of the reference generators: the same numpy calls in the
-same order, so one seed gives identical edge arrays in both packages.  The
-GNN batch generator (``GraphBatcher``) waits for the model slice.
+same order, so one seed gives identical edge arrays in both packages, and
+of its padded-batch builder for GNN training (``GraphBatcher``), whose
+batches are byte-identical to the reference's for a seed and step.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict
 
 import numpy as np
 
@@ -70,3 +74,39 @@ def planted_cliques(n: int, n_cliques: int, clique_size: int,
     keep = rng.random(len(ii)) < p_noise
     edges.extend(zip(ii[keep].tolist(), jj[keep].tolist()))
     return from_edges(n, np.asarray(edges, dtype=np.int64))
+
+
+@dataclasses.dataclass
+class GraphBatcher:
+    """Deterministic resumable batches of small graphs (molecule regime)."""
+    n_nodes: int = 30
+    n_edges: int = 64
+    batch: int = 128
+    d_feat: int = 16
+    seed: int = 0
+    step: int = 0
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.step]))
+        B, N, E = self.batch, self.n_nodes, self.n_edges
+        feats = rng.normal(size=(B * N, self.d_feat)).astype(np.float32)
+        pos = rng.normal(size=(B * N, 3)).astype(np.float32)
+        src = rng.integers(0, N, size=(B, E))
+        dst = (src + 1 + rng.integers(0, N - 1, size=(B, E))) % N
+        offset = (np.arange(B) * N)[:, None]
+        edges = np.stack([(src + offset).reshape(-1),
+                          (dst + offset).reshape(-1)], 0).astype(np.int32)
+        graph_ids = np.repeat(np.arange(B, dtype=np.int32), N)
+        # synthetic label: a smooth function of mean pairwise distance
+        y = np.tanh(pos.reshape(B, N, 3).std(axis=(1, 2))).astype(np.float32)
+        self.step += 1
+        return {"nodes": feats, "pos": pos, "edges": edges,
+                "edge_mask": np.ones(edges.shape[1], np.float32),
+                "graph_ids": graph_ids, "labels": y}
+
+    def state(self):
+        return {"step": self.step, "seed": self.seed}
+
+    def restore(self, state):
+        self.step = int(state["step"])

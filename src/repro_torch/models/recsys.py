@@ -1,0 +1,120 @@
+"""DCN-v2 (arXiv:2008.13535) with a hand-built EmbeddingBag.
+
+The port of the reference's ``models.recsys``: the same formulas, in
+torch.  The bag lookup is a row gather over the one (n_sparse * vocab,
+dim) table plus a masked sum, as in the reference; the gather's gradient
+sums the rows of each repeated index in a fixed order
+(:func:`.scatter.gather_rows`), so two runs of a training step give the
+same table on the card.  Single-valued categorical fields are the
+bag-size-1 special case of the same code path.
+
+Shapes:
+  dense   (B, n_dense) float
+  sparse  (B, n_sparse, bag) int indices into per-field vocab (padded -1)
+Field f's rows start at f * vocab.
+
+:func:`retrieval_scores` takes its top-k from a stable descending sort,
+so equal scores come out lower index first, as ``lax.top_k`` gives them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .common import apply_mlp, dense_init, init_mlp, normal_init
+from .scatter import gather_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class DCNConfig:
+    n_dense: int = 13
+    n_sparse: int = 26
+    vocab: int = 1_000_000       # rows per field
+    embed_dim: int = 16
+    n_cross: int = 3
+    mlp_dims: tuple = (1024, 1024, 512)
+    bag: int = 1                 # multi-hot bag size per field
+
+    @property
+    def d_x0(self) -> int:
+        return self.n_dense + self.n_sparse * self.embed_dim
+
+
+def init_dcn(gen: torch.Generator, cfg: DCNConfig, device):
+    d = cfg.d_x0
+    params = {
+        "table": normal_init(gen, (cfg.n_sparse * cfg.vocab, cfg.embed_dim),
+                             0.01, device),
+        "cross": [],
+        "mlp": init_mlp(gen, [d, *cfg.mlp_dims], device),
+        "head": dense_init(gen, cfg.mlp_dims[-1] + d, 1, device),
+    }
+    for _ in range(cfg.n_cross):
+        params["cross"].append({
+            "w": dense_init(gen, d, d, device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=device),
+        })
+    return params
+
+
+def embedding_bag(table, indices, field_offsets, mode: str = "sum"):
+    """table: (R, dim); indices: (B, F, bag) with -1 padding.
+
+    Returns (B, F, dim): a row gather + masked mean/sum -- the
+    EmbeddingBag.  Padding adds 0; ``mean`` divides by max(count, 1).
+    """
+    B, F, bag = indices.shape
+    mask = indices >= 0
+    flat = (indices.long().clamp_min(0)
+            + field_offsets.long()[None, :, None]).reshape(-1)
+    emb = gather_rows(table, flat).reshape(B, F, bag, -1)
+    emb = emb * mask[..., None].to(emb.dtype)
+    out = emb.sum(dim=2)
+    if mode == "mean":
+        out = out / torch.clamp_min(mask.sum(dim=2)[..., None], 1).to(
+            out.dtype)
+    return out
+
+
+def _x0(params, dense, sparse, cfg: DCNConfig):
+    B = dense.shape[0]
+    offs = torch.arange(cfg.n_sparse, device=dense.device) * cfg.vocab
+    emb = embedding_bag(params["table"], sparse, offs)       # (B, F, dim)
+    return torch.cat([dense, emb.reshape(B, -1)], dim=-1)
+
+
+def dcn_forward(params, dense, sparse, cfg: DCNConfig):
+    """Returns logits (B,)."""
+    x0 = _x0(params, dense, sparse, cfg)
+    x = x0
+    for c in params["cross"]:                                # DCN-v2 cross
+        x = x0 * (x @ c["w"] + c["b"]) + x
+    deep = apply_mlp(params["mlp"], x0, act="relu", final_act=True)
+    feat = torch.cat([x, deep], dim=-1)
+    return (feat @ params["head"])[:, 0]
+
+
+def bce_loss(logits, labels):
+    logits = logits.float()
+    return torch.mean(torch.clamp_min(logits, 0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+# ---------------------------------------------------------------------------
+# retrieval scoring: one query against n_candidates (batched dot + top-k)
+# ---------------------------------------------------------------------------
+
+def retrieval_scores(params, dense, sparse, cand_embs, cfg: DCNConfig,
+                     topk: int = 100):
+    """Score the candidates for each query via the deep tower's final
+    layer.
+
+    cand_embs: (n_cand, d_tower). Returns (values, indices) top-k, ties
+    lower index first.
+    """
+    x0 = _x0(params, dense, sparse, cfg)
+    q = apply_mlp(params["mlp"], x0, act="relu", final_act=True)  # (B, dt)
+    scores = q @ cand_embs.T                                  # (B, n_cand)
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[:, :topk], idx[:, :topk]

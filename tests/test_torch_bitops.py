@@ -25,7 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # the port's twins of the reference's examples
 EXAMPLE_TWINS = [ROOT / "examples" / "quickstart_torch.py",
                  ROOT / "examples" / "clique_service_torch.py",
-                 ROOT / "examples" / "train_lm_torch.py"]
+                 ROOT / "examples" / "train_lm_torch.py",
+                 ROOT / "examples" / "gnn_clique_features_torch.py"]
 
 
 def words(seed, shape):
@@ -133,7 +134,11 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.launch.steps", "repro_torch.optim.adamw",
             "repro_torch.runtime.train_loop", "repro_torch.data.lm",
-            "repro_torch.configs.deepseek_moe_16b"} <= set(mods)
+            "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.models.gnn", "repro_torch.models.equivariant",
+            "repro_torch.models.recsys", "repro_torch.models.scatter",
+            "repro_torch.data.sampler", "repro_torch.data.recsys",
+            "repro_torch.configs.dcn_v2"} <= set(mods)
     examples = [str(p) for p in EXAMPLE_TWINS]
     code = ("import sys, importlib, importlib.util\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

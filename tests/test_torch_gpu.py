@@ -1211,3 +1211,146 @@ def test_train_twin_runs_on_card(cuda):
     first = float(last.split("first loss ")[1].split(";")[0])
     assert float(last.split("loss=")[1].split(" ")[0]) < first
     assert "on cuda" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the GNN, equivariant and recsys families
+# ---------------------------------------------------------------------------
+
+A13D = ("gin-tu", "meshgraphnet", "egnn", "nequip", "dcn-v2")
+
+
+def _tree_to(tree, device):
+    from repro_torch.optim import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [x.detach().clone().to(device)
+                                 for x in tree_leaves(tree)])
+
+
+def _family_cell(arch):
+    """(train step, params on the CPU, pipeline) of the arch's reduced
+    first train cell, through ``launch.train.build``."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    spec = configs.get(arch)
+    shape = next(n for n, c in spec.cells.items() if c.kind == "train")
+    return train.build(spec, shape, True, "cpu")
+
+
+@pytest.mark.parametrize("arch", A13D)
+def test_reduced_family_step_on_card_matches_cpu(cuda, arch):
+    """3 train steps of the reduced cell (f32, TF32 off) on the card and
+    on the CPU from the same params and batches: losses and params
+    within rtol 1e-4 / atol 1e-4."""
+    from repro_torch.optim import adamw_init, tree_leaves
+    step, cpu_p, pipe = _family_cell(arch)
+    card_p = _tree_to(cpu_p, cuda)
+    cpu_o, card_o = adamw_init(cpu_p), adamw_init(card_p)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(3):
+            batch = pipe.next_batch()
+            cpu_p, cpu_o, cm = step(cpu_p, cpu_o, batch)
+            card_p, card_o, gm = step(card_p, card_o, batch)
+            np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", A13D)
+def test_family_step_repeats_bitwise_on_card(cuda, arch):
+    """One step from the same state twice on the card: the segment sums,
+    the gathers' and the table's grads add in a fixed order, so params,
+    moments and loss are equal bit for bit."""
+    from repro_torch.optim import adamw_init, tree_leaves
+    step, cpu_p, pipe = _family_cell(arch)
+    batch = pipe.next_batch()
+    runs = []
+    for _ in range(2):
+        p = _tree_to(cpu_p, cuda)
+        p, o, m = step(p, adamw_init(p), batch)
+        runs.append((tree_leaves((p, o)), m))
+    (a, ma), (b, mb) = runs
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ma["loss"], mb["loss"])
+
+
+def test_segment_ops_on_card_match_cpu(cuda):
+    """The scatters (out-of-range ids dropped, empty segments), the
+    gather's and propagate's grads on the card equal the CPU's within
+    1e-6, and two runs of a grad on the card are equal bit for bit."""
+    from repro_torch.models import gnn
+    from repro_torch.models.scatter import (edge_index, gather_rows,
+                                            propagate)
+    rng = np.random.default_rng(0)
+    N, E = 500, 20_000
+    msg = torch.from_numpy(rng.normal(size=(E, 8)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-3, N + 3, E))
+    for op in (gnn.scatter_sum, gnn.scatter_mean, gnn.scatter_max):
+        want = op(msg, ids, N)
+        got = op(msg.to(cuda), ids.to(cuda), N).cpu()
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        np.testing.assert_allclose(got[fin].numpy(), want[fin].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    edges = torch.from_numpy(rng.integers(0, N, (2, E)))
+    h = torch.from_numpy(rng.normal(size=(N, 8)).astype(np.float32))
+    w = torch.from_numpy((rng.random(E) < 0.9).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda, cuda):
+        ei = edge_index(edges.to(dev), N)
+        x = h.to(dev).requires_grad_(True)
+        out = propagate(x, w.to(dev).index_select(0, ei.perm), ei) \
+            + gather_rows(x, ei.src, ei.by_src)[:N]
+        grads.setdefault(str(dev), []).append(
+            torch.autograd.grad((out * out).sum(), [x])[0].cpu())
+    np.testing.assert_allclose(grads["cuda"][0].numpy(),
+                               grads["cpu"][0].numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(grads["cuda"][0], grads["cuda"][1])
+
+
+def test_retrieval_ties_on_card(cuda):
+    """Tied scores come out lower index first on the card, as on the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import drawn_params
+    spec = configs.get("dcn-v2")
+    mc = steps.recsys_cell(spec, spec.cells["retrieval_cand"], reduced=True)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    params = drawn_params(mc.init, gen, "cpu")
+    rng = np.random.default_rng(4)
+    base = rng.normal(size=(7, 32)).astype(np.float32)
+    cand = base[rng.integers(0, 7, 4096)]
+    dense = rng.normal(size=(1, 13)).astype(np.float32)
+    sparse = rng.integers(0, 1000, (1, 26, 1)).astype(np.int32)
+    want = mc.step_fn(params, dense, sparse, cand)
+    got = mc.step_fn(_tree_to(params, cuda), dense, sparse, cand)
+    assert torch.equal(got[1].cpu(), want[1])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_gnn_twin_runs_on_card(cuda):
+    """``examples/gnn_clique_features_torch.py`` on the card: the list
+    kernel lists the clique features, equal to the host recursion's, and
+    the GIN passes the accuracy bar."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "gnn_clique_features_torch",
+        root / "examples" / "gnn_clique_features_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = ops.launch_counts()["clique_list_tiles"]
+    out = mod.main(["--steps", "200"])
+    assert ops.launch_counts()["clique_list_tiles"] > before
+    assert out["acc"] > 0.9
+    np.testing.assert_array_equal(
+        out["features"], mod.clique_features(out["graph"], backend="host"))

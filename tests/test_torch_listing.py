@@ -113,6 +113,29 @@ def test_list_plain_matches_pallas_kernel(l):
         assert_triple_equal(got, tuple(np.asarray(x) for x in want))
 
 
+@pytest.mark.parametrize("l", [1, 2, 3, 4, 5, 6])
+def test_list_plain_at_smaller_capacity_is_truncation(l):
+    """What chip_smoke.py's list cases rely on when one plain run serves
+    several capacities: the result at capacity c is the result at a larger
+    capacity cut to its first c rows, with the same count, overflow =
+    count > c, and the same work tally."""
+    A, cand = cliquey_tiles(100 * l + 64, 5, 64, s_max=18 if l >= 5 else 22)
+    big_work = {}
+    big = clique_list.clique_list_tiles_torch(*port(A, cand), l, 4096,
+                                              work=big_work)
+    assert int(big[1].max()) > 2 and not big[2].any()
+    for cap in (1, 2, int(big[1].max()) - 1):
+        work = {}
+        buf, cnt, ovf = clique_list.clique_list_tiles_torch(
+            *port(A, cand), l, cap, work=work)
+        assert torch.equal(buf, big[0][:, :cap])
+        assert torch.equal(cnt, big[1])
+        assert torch.equal(ovf, (big[1] > cap).to(torch.int64))
+        assert ovf.any()
+        for key, v in big_work.items():
+            assert torch.equal(work[key], v)
+
+
 def test_list_plain_work_counts():
     """The work tally the bound in chip_smoke.py reads."""
     A, cand = cliquey_tiles(3, 4, 64, s_max=16)

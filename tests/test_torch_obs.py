@@ -205,7 +205,6 @@ def test_disabled_tracer_overhead_budget():
         return time.perf_counter() - t0
 
     workload()  # warm the plan cache
-    work_s = min(workload() for _ in range(3))
 
     trace.configure(enabled=True)
     trace.reset()
@@ -215,17 +214,24 @@ def test_disabled_tracer_overhead_budget():
     trace.reset()
     assert n_spans > 0
 
-    def span_cost():
-        n_iter = 20_000
+    def span_round(n_iter):
         t0 = time.perf_counter()
         for _ in range(n_iter):
             with trace.span("x", a=1):
                 pass
         return (time.perf_counter() - t0) / n_iter
 
-    # the least of several rounds, as for the workload: a round that the
-    # scheduler preempts measures the machine's load, not the span
-    per_call = min(span_cost() for _ in range(5))
+    # Both sides are timed alike: a span round is sized to last about as
+    # long as one workload run, the two alternate, and the least of each
+    # is kept.  Under load a long round is preempted far more often than
+    # a short one, so rounds of unequal length would charge the machine's
+    # load to the spans alone.
+    n_iter = max(100, int(workload() / span_round(1000)))
+    work, spans = [], []
+    for _ in range(15):
+        work.append(workload())
+        spans.append(span_round(n_iter))
+    work_s, per_call = min(work), min(spans)
     overhead = per_call * n_spans
     assert overhead <= 0.01 * work_s, (
         f"disabled tracing would add {overhead * 1e3:.3f}ms over "

@@ -360,12 +360,9 @@ def test_train_launcher_crash_then_resume_equals_uninterrupted(tmp_path):
         np.testing.assert_array_equal(got["tree"][k], v)
 
 
-def test_train_launcher_rejects_unported_and_non_lm_archs():
-    with pytest.raises(NotImplementedError, match="A13d"):
-        train.main(["--arch", "gin-tu", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A13d"):
-        train.main(["--arch", "dcn-v2", "--device", "cpu"])
-    with pytest.raises(SystemExit):
+def test_train_launcher_rejects_ebbkc():
+    """The clique engine's arch has no train step: the launcher exits."""
+    with pytest.raises(SystemExit, match="'ebbkc' is 'clique'"):
         train.main(["--arch", "ebbkc", "--device", "cpu"])
 
 

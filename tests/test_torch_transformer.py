@@ -358,22 +358,35 @@ def test_moe_config_raises_not_implemented():
 # registry and launcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", sorted(configs.UNPORTED))
-def test_registry_raises_for_unported_arch(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item A13d"):
-        configs.get(arch)
+A13D_ARCHS = ["dcn-v2", "egnn", "gin-tu", "meshgraphnet", "nequip"]
+
+
+@pytest.mark.parametrize("arch", A13D_ARCHS)
+def test_registry_resolves_gnn_and_recsys_arch_as_reference(arch):
+    """Family, cells and every field of the full and reduced configs
+    equal the reference's (the port's config classes keep its fields)."""
+    spec, jspec = configs.get(arch), jconfigs.get(arch)
+    assert (spec.name, spec.family) == (jspec.name, jspec.family)
+    assert spec.family == ("recsys" if arch == "dcn-v2" else "gnn")
+    assert cells(spec) == cells(jspec)
+    for which in ("full", "reduced"):
+        mine, ref = getattr(spec, which), getattr(jspec, which)
+        assert type(mine).__name__ == type(ref).__name__
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    if arch == "dcn-v2":
+        assert spec.full.d_x0 == jspec.full.d_x0 == 429
 
 
 def test_registry_resolves_ported_archs():
     assert set(configs._MODULES) == set(jconfigs._MODULES)
     assert configs.ASSIGNED == jconfigs.ASSIGNED
+    assert configs.UNPORTED == {}
     specs = configs.all_specs()
-    assert set(specs) == {"granite-3-8b", "nemotron-4-15b", "gemma3-27b",
-                          "deepseek-moe-16b", "dbrx-132b", "ebbkc"}
+    assert set(specs) == set(jconfigs._MODULES)
     assert {specs[a].full.moe.n_experts for a in
             ("deepseek-moe-16b", "dbrx-132b")} == {64, 16}
-    assert set(configs.UNPORTED) == {"gin-tu", "nequip", "meshgraphnet",
-                                     "egnn", "dcn-v2"}
+    assert sorted(a for a in specs if specs[a].family in
+                  ("gnn", "recsys")) == A13D_ARCHS
     assert specs["ebbkc"].family == "clique"
     assert cells(specs["ebbkc"]) == cells(jconfigs.get("ebbkc"))
     with pytest.raises(KeyError):
