@@ -138,9 +138,23 @@ the whole smoke stays inside its time limit:
   train steps at B = 65,536 (a bitwise repeat), serving at B = 512 (p50
   / p99 of 50 calls, logits against the CPU) and B = 262,144, and
   retrieval over 1,000,000 candidates (its top 100 against a stable
-  sort of the same scores).  The LM, MoE, training, GNN, recsys and
-  truss paths run none of the four kernels but the GNN twin's listing
-  (torch ops only, as the reference runs XLA ops there).
+  sort of the same scores);
+* sharding (``[shard]``, ``repro_torch.sharding`` over a ``DeviceMesh``
+  from ``launch.mesh``): the paper's edge-parallel clique cells
+  ``ep_tri_1m`` (1,048,576 tiles, T = 64) and ``ep_tri_128`` (262,144
+  tiles, T = 128) of ``launch.steps.build_cell`` on a 1-rank NCCL mesh
+  through the triangle kernel (per-tile outputs against the unsharded
+  ``count_packed``, the kernel against its plain version on a 4,096-tile
+  slice, the f32 total beside the exact int64 sum), ``ep_tri_1m`` on two
+  spawned ranks of the one card over gloo (their blocks against the
+  1-rank run), one sharded gin-tu step on ``[gnn train]``'s ogb_products
+  batch and params and one sharded dcn-v2 train step and retrieval
+  query against their unsharded twins, and ``compressed_allreduce`` over
+  a 100M-element gradient against its single-process round trip.  The
+  LM, MoE, training, GNN, recsys and truss paths run none of the four
+  kernels but the GNN twin's listing (torch ops only, as the reference
+  runs XLA ops there); ``[shard]``'s clique cells run the triangle
+  kernel, and their launches count on its row.
 
 Any failure raises and exits non-zero.
 
@@ -3674,9 +3688,11 @@ def gnn_phase(header: str, built: dict) -> dict:
         run, loop, step_fn, batch = full_train_run(arch, shape, n, tag,
                                                    built.pop(arch))
         run.update(repeat_bitwise(loop, step_fn, batch, arch, tag))
-        del loop
         if arch == "gin-tu":
             run["scatter"] = scatter_check(batch, run["n_nodes"], tag)
+            # for [shard]: the sharded step on the same params and batch
+            out["_shard_inputs"] = (clone_tree(loop.params), batch)
+        del loop
         out[arch] = run
         batch = None
     log(f"{tag} {header}")
@@ -3735,7 +3751,8 @@ def recsys_phase(header: str) -> dict:
     run.update(repeat_bitwise(loop, step_fn, batch, RECSYS_ARCH, tag))
     params = loop.params
     del loop
-    out = {"train_batch": run}
+    # for [shard]: the trained params
+    out = {"train_batch": run, "_shard_inputs": params}
     torch.cuda.empty_cache()
 
     def inputs(B, seed):
@@ -3816,6 +3833,390 @@ def recsys_phase(header: str) -> dict:
     if not same:
         fail(f"{tag} the retrieval top-100 differs from a stable sort")
     return out
+
+
+# [shard]: the sharding substrate on the card.  The clique cells at their
+# full sizes on a 1-rank NCCL mesh and ep_tri_1m on two ranks of the one
+# card over gloo (NCCL refuses two ranks on one GPU), the GNN and recsys
+# cells on the 1-rank mesh against their unsharded twins, and the int8
+# compressed all-reduce.
+SHARD_CELLS = (("ep_tri_1m", 0.2), ("ep_tri_128", 0.1))   # (cell, density)
+SHARD_SLICE = 4096          # tiles of the kernel-vs-plain comparison
+SHARD_CHUNK_BYTES = 1 << 30
+SHARD_WORLD = 2
+SHARD_GRAD_ELEMS = 100_000_000
+SHARD_COMPRESS_REPS = 5
+
+
+def shard_tiles(B: int, T: int, p: float, seed: int):
+    """(B, T, T // 32) int32 words of symmetric adjacency tiles (density
+    ``p``, no self loops) and (B, W) candidate words (each bit 0.8),
+    drawn on the card from a generator seeded ``seed``, in chunks of
+    about 1 GiB of floats."""
+    import torch
+    W = T // 32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    weights = (torch.ones(32, dtype=torch.int64, device="cuda")
+               << torch.arange(32, device="cuda"))
+
+    def pack(bits):
+        words = (bits.view(*bits.shape[:-1], W, 32).long() * weights).sum(-1)
+        return words.to(torch.int32)   # the low 32 bits: the int32 view
+    A = torch.empty((B, T, W), dtype=torch.int32, device="cuda")
+    cand = torch.empty((B, W), dtype=torch.int32, device="cuda")
+    step = max(1, SHARD_CHUNK_BYTES // (4 * T * T))
+    upper = torch.ones((T, T), dtype=torch.bool, device="cuda").triu(1)
+    for b0 in range(0, B, step):
+        b = min(step, B - b0)
+        r = torch.rand((b, T, T), generator=gen, device="cuda") < p
+        r &= upper
+        A[b0:b0 + b] = pack(r | r.transpose(1, 2))
+        c = torch.rand((b, T), generator=gen, device="cuda") < 0.8
+        cand[b0:b0 + b] = pack(c)
+    return A, cand
+
+
+def kernel_device_ms(fn) -> tuple:
+    """(``fn``'s result, summed device ms of the triangle kernel's
+    launches in one profiled call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "tri_" in e.name)
+    return out, us / 1e3
+
+
+def shard_clique_rank(rank: int, world: int, store: str, out_dir: str,
+                      seed: int) -> None:
+    """One of :data:`SHARD_WORLD` spawned ranks on the card: ``ep_tri_1m``
+    on a (world, 1) mesh over gloo, its blocks and times saved."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import engine_torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import spmd
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_local_mesh((world, 1), device="cuda")
+        cell = steps.build_cell(configs.get("ebbkc"), "ep_tri_1m", mesh)
+        m = cell.meta
+        A, cand = shard_tiles(m["n_tiles"], m["T"], SHARD_CELLS[0][1], seed)
+        ts, cs = cell.in_specs
+        A_loc, c_loc = spmd.shard(A, ts, mesh), spmd.shard(cand, cs, mesh)
+        del A, cand
+        cell.step_fn(A_loc[:SHARD_SLICE], c_loc[:SHARD_SLICE])   # warm
+        dist.barrier()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        total, nv, t, f = cell.step_fn(A_loc, c_loc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()["triangle_count_tiles"]
+        hard = engine_torch.count_packed(A_loc, c_loc, 3, method="mxu")[0]
+        np.savez(Path(out_dir) / f"rank{rank}.npz", total=total.cpu(),
+                 nv=nv.cpu(), t=t.cpu(), f=f.cpu(), hard=hard.cpu(),
+                 wall=wall, launches=launches)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_two_ranks(one_rank: dict, seed: int, tag: str) -> dict:
+    """``ep_tri_1m`` on :data:`SHARD_WORLD` spawned ranks of the card:
+    each rank's blocks against the 1-rank run's rows, the totals."""
+    import numpy as np
+    import shutil
+    import torch.multiprocessing as mp
+    out_dir = ROOT / "build" / "shard_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(shard_clique_rank, nprocs=SHARD_WORLD, join=True,
+             args=(SHARD_WORLD, str(out_dir / "store"), str(out_dir), seed))
+    spawn_s = time.perf_counter() - t0
+    ranks = [dict(np.load(out_dir / f"rank{r}.npz"))
+             for r in range(SHARD_WORLD)]
+    whole = {k: np.concatenate([r[k] for r in ranks])
+             for k in ("nv", "t", "f", "hard")}
+    same = all(np.array_equal(whole[k], one_rank[k])
+               for k in ("nv", "t", "f", "hard"))
+    totals = [float(r["total"]) for r in ranks]
+    exact = int(whole["hard"].astype(np.int64).sum())
+    out = dict(world=SHARD_WORLD, spawn_s=spawn_s,
+               wall_s=[float(r["wall"]) for r in ranks],
+               launches=[int(r["launches"]) for r in ranks],
+               totals=totals, exact_total=exact,
+               blocks_equal_one_rank=same,
+               total_gap_vs_one_rank=abs(totals[0] - one_rank["total"]))
+    log(f"{tag} ep_tri_1m on {SHARD_WORLD} ranks of the card over gloo: "
+        f"per-tile hard, nv, t, f of the gathered blocks equal to the "
+        f"1-rank run: {same}; step wall "
+        + ", ".join(f"{w:.4f}" for w in out["wall_s"])
+        + f" s; kernel launches {out['launches']}; f32 totals {totals} "
+        f"against the 1-rank f32 {one_rank['total']:.1f} and the exact "
+        f"int64 {exact} (1-rank {one_rank['exact']}); spawn, build load "
+        f"and tiles {spawn_s:.1f} s")
+    if not same or exact != one_rank["exact"] or len(set(totals)) != 1:
+        fail(f"{tag} the {SHARD_WORLD}-rank clique cell differs from the "
+             "1-rank run")
+    if abs(totals[0] - exact) > 2 ** -23 * exact * 4:
+        fail(f"{tag} the {SHARD_WORLD}-rank f32 total is off its rounding")
+    return out
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| over the largest |want| (0 for equal tensors)."""
+    d = float((got.double() - want.double()).abs().max())
+    return d / max(float(want.double().abs().max()), 1e-30)
+
+
+def shard_gnn(mesh, inputs, tag: str) -> dict:
+    """One sharded gin-tu step at ogb_products on ``[gnn train]``'s params
+    and batch against the unsharded step: loss and every grad within
+    :data:`SCATTER_REL` of the largest magnitude, the step times."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init, tree_leaves
+    from repro_torch.sharding import spmd
+    params, batch = inputs
+    spec = configs.get("gin-tu")
+    cell_s, cell_u = (steps.gnn_train_cell(spec, spec.cells["ogb_products"],
+                                           m) for m in (mesh, None))
+    on_card = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    local = spmd.shard_tree(on_card, cell_s.in_specs[2], mesh)
+    lu, gu = cell_u.grads_fn(clone_tree(params), on_card)
+    ls, gs = cell_s.grads_fn(clone_tree(params), local)
+    errs = [max_rel(a, b) for a, b in zip(tree_leaves(gs), tree_leaves(gu))]
+    loss_rel = max_rel(ls, lu)
+    del gu, gs
+    times = {}
+    for name, cell, b in (("unsharded", cell_u, on_card),
+                          ("sharded", cell_s, local)):
+        p = clone_tree(params)
+        o = adamw_init(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell.step_fn(p, o, b)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        del p, o
+    out = dict(loss=float(ls), loss_unsharded=float(lu), loss_rel=loss_rel,
+               grad_rel_max=max(errs), step_s=times["sharded"],
+               unsharded_step_s=times["unsharded"],
+               n_nodes=cell_s.meta["n_nodes"], n_edges=cell_s.meta["n_edges"])
+    log(f"{tag} gin-tu ogb_products (N={out['n_nodes']:,} "
+        f"E={out['n_edges']:,}) on the 1-rank mesh: loss {out['loss']:.7g} "
+        f"against {out['loss_unsharded']:.7g} unsharded (rel {loss_rel:.2e}),"
+        f" largest grad gap {out['grad_rel_max']:.2e} of the leaf's largest "
+        f"magnitude (bound {SCATTER_REL}); step {times['sharded']:.3f} s "
+        f"sharded, {times['unsharded']:.3f} s unsharded")
+    if loss_rel > SCATTER_REL or out["grad_rel_max"] > SCATTER_REL:
+        fail(f"{tag} the sharded gin-tu step differs from the unsharded")
+    return out
+
+
+def shard_recsys(mesh, params, tag: str) -> dict:
+    """One sharded dcn-v2 train_batch step and one retrieval_cand query at
+    full width on the 1-rank mesh against their unsharded twins."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import spmd
+    spec = configs.get(RECSYS_ARCH)
+    cfg = spec.full
+    tr_s, tr_u = (steps.recsys_cell(spec, spec.cells["train_batch"], m)
+                  for m in (mesh, None))
+    b = RecsysPipeline(n_dense=cfg.n_dense, n_sparse=cfg.n_sparse,
+                       vocab=cfg.vocab, batch=tr_s.meta["batch"],
+                       bag=cfg.bag, seed=3).next_batch()
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+    pspec, _, bspec = tr_s.in_specs
+    metrics, times = {}, {}
+    for name, cell, p, batch in (
+            ("unsharded", tr_u, clone_tree(params), b),
+            ("sharded", tr_s, spmd.shard_tree(clone_tree(params), pspec,
+                                              mesh),
+             spmd.shard_tree(b, bspec, mesh))):
+        o = adamw_init(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = cell.step_fn(p, o, batch)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        metrics[name] = {k: float(v) for k, v in m.items()}
+        del p, o
+    rel = {k: abs(metrics["sharded"][k] - metrics["unsharded"][k])
+           / max(abs(metrics["unsharded"][k]), 1e-30)
+           for k in ("loss", "grad_norm")}
+    rt_s, rt_u = (steps.recsys_cell(spec, spec.cells["retrieval_cand"], m)
+                  for m in (mesh, None))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    cand = torch.randn((rt_s.meta["n_candidates"], cfg.mlp_dims[-1]),
+                       generator=gen, device="cuda")
+    q = RecsysPipeline(n_dense=cfg.n_dense, n_sparse=cfg.n_sparse,
+                       vocab=cfg.vocab, batch=1, bag=cfg.bag,
+                       seed=2).next_batch()
+    local_p = spmd.shard_tree(params, rt_s.in_specs[0], mesh)
+    vs, is_ = rt_s.step_fn(local_p, q["dense"], q["sparse"],
+                           spmd.shard(cand, rt_s.in_specs[3], mesh))
+    vu, iu = rt_u.step_fn(params, q["dense"], q["sparse"], cand)
+    same = torch.equal(is_, iu) and torch.equal(vs, vu)
+    r_ms = timed_calls(lambda: rt_s.step_fn(local_p, q["dense"],
+                                            q["sparse"], cand),
+                       RECSYS_RETRIEVAL_CALLS)
+    out = dict(train_metrics=metrics, train_rel=rel,
+               step_s=times["sharded"], unsharded_step_s=times["unsharded"],
+               retrieval_top100_equal=same,
+               retrieval_ms=[1e3 * x for x in r_ms])
+    log(f"{tag} dcn-v2 train_batch (B={tr_s.meta['batch']:,}) on the 1-rank "
+        f"mesh: loss rel {rel['loss']:.2e}, grad norm rel "
+        f"{rel['grad_norm']:.2e}; step {times['sharded']:.4f} s sharded, "
+        f"{times['unsharded']:.4f} s unsharded; retrieval_cand top 100 equal "
+        f"to the unsharded query's: {same}, "
+        + ", ".join(f"{1e3 * x:.3f}" for x in r_ms) + " ms a query")
+    if max(rel.values()) > SCATTER_REL or not same:
+        fail(f"{tag} the sharded dcn-v2 step or retrieval differs")
+    return out
+
+
+def shard_compress(mesh, tag: str) -> dict:
+    """``compressed_allreduce`` of a :data:`SHARD_GRAD_ELEMS`-element f32
+    gradient over the mesh's data group at world 1 against the
+    ``group=None`` round trip (equal), and its device time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim import compressed_allreduce
+    from repro_torch.sharding import spmd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    x = torch.randn(SHARD_GRAD_ELEMS, generator=gen, device="cuda")
+    err = torch.randn(SHARD_GRAD_ELEMS, generator=gen, device="cuda") * 1e-3
+    group = spmd.axis_group(mesh, ("data", "model"))
+    got, got_err = compressed_allreduce(x, err, group)
+    want, want_err = compressed_allreduce(x, err, None)
+    same = torch.equal(got, want) and torch.equal(got_err, want_err)
+    del got, got_err, want, want_err
+    ms = []
+    for _ in range(SHARD_COMPRESS_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        compressed_allreduce(x, err, group)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    out = dict(elements=SHARD_GRAD_ELEMS, equal_to_round_trip=same, ms=ms,
+               ms_median=statistics.median(ms))
+    log(f"{tag} compressed_allreduce of {SHARD_GRAD_ELEMS:,} f32 at world 1 "
+        f"({dist.get_backend(group)}): equal to the group=None round trip: "
+        f"{same}; "
+        + ", ".join(f"{t:.3f}" for t in ms) + " ms a call (CUDA events)")
+    if not same:
+        fail(f"{tag} compressed_allreduce differs from its round trip")
+    return out
+
+
+def shard_phase(header: str, gnn_inputs, recsys_params) -> dict:
+    """``[shard]``: see the module docstring.  Returns the numbers and the
+    triangle kernel's launches of the phase (1-rank and spawned runs)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import engine_torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import spmd
+    tag = "[shard]"
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh((1, 1), device="cuda")
+    log(f"{tag} 1-rank mesh over {dist.get_backend()}: "
+        f"{spmd.mesh_sizes(mesh)}")
+    out, launches, seed = {"cells": {}}, 0, 7
+    spec = configs.get("ebbkc")
+    one_rank = None
+    for name, p in SHARD_CELLS:
+        cell = steps.build_cell(spec, name, mesh)
+        m = cell.meta
+        A, cand = shard_tiles(m["n_tiles"], m["T"], p, seed)
+        ts, cs = cell.in_specs
+        A_loc, c_loc = spmd.shard(A, ts, mesh), spmd.shard(cand, cs, mesh)
+        cell.step_fn(A_loc[:SHARD_SLICE], c_loc[:SHARD_SLICE])      # warm
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        total, nv, t, f = cell.step_fn(A_loc, c_loc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = ops.launch_counts()["triangle_count_tiles"]
+        if not n_launch:
+            fail(f"{tag} {name} never launched the triangle kernel")
+        launches += n_launch
+        (_, _, _, _), dev_ms = kernel_device_ms(
+            lambda: cell.step_fn(A_loc, c_loc))
+        hard, nv_u, t_u, f_u = engine_torch.count_packed(A, cand, 3,
+                                                         method="mxu")
+        same = (torch.equal(nv, nv_u) and torch.equal(t, t_u)
+                and torch.equal(f, f_u))
+        exact = int(hard.sum())
+        gap = abs(float(total) - exact) / max(exact, 1)
+        # the kernel against its plain version on a slice (et routing in)
+        a, c = A[:SHARD_SLICE], cand[:SHARD_SLICE]
+        c = torch.where((t_u[:SHARD_SLICE] <= 2)[:, None],
+                        torch.zeros_like(c), c)
+        k_out = ops.count_tiles(a, c, 3, method="mxu")
+        p_out = kref.clique_count_tiles_ref(a.cpu(), c.cpu(), 3)
+        slice_err = int((k_out.cpu() - p_out).abs().max())
+        r = dict(n_tiles=m["n_tiles"], T=m["T"], density=p,
+                 tile_bytes=A.numel() * 4, wall_s=wall,
+                 kernel_device_ms=dev_ms, launches=n_launch,
+                 per_tile_equal=same, f32_total=float(total),
+                 exact_total=exact, total_rel_gap=gap,
+                 slice_max_abs_err=slice_err)
+        out["cells"][name] = r
+        log(f"{tag} {name} (B={m['n_tiles']:,}, T={m['T']}, p={p}, "
+            f"{r['tile_bytes'] / 2**20:.0f} MiB of tiles) on the 1-rank mesh:"
+            f" step wall {wall:.4f} s, triangle kernel {dev_ms:.3f} ms device "
+            f"in {n_launch} launches; nv, t, f equal to the unsharded "
+            f"count_packed: {same}; f32 total {float(total):.1f} against the "
+            f"exact int64 {exact} (rel gap {gap:.2e}); kernel vs plain on "
+            f"{SHARD_SLICE} tiles max |err| {slice_err}")
+        if not same or slice_err or gap > 2 ** -23 * 4:
+            fail(f"{tag} {name}: the sharded cell or the kernel is off")
+        if one_rank is None:
+            one_rank = dict(nv=nv.cpu().numpy(), t=t.cpu().numpy(),
+                            f=f.cpu().numpy(), hard=hard.cpu().numpy(),
+                            total=float(total), exact=exact)
+        del A, cand, A_loc, c_loc, hard, nv_u, t_u, f_u
+        torch.cuda.empty_cache()
+    out["two_ranks"] = shard_two_ranks(one_rank, seed, tag)
+    launches += sum(out["two_ranks"]["launches"])
+    out["gnn"] = shard_gnn(mesh, gnn_inputs, tag)
+    torch.cuda.empty_cache()
+    out["recsys"] = shard_recsys(mesh, recsys_params, tag)
+    torch.cuda.empty_cache()
+    out["compress"] = shard_compress(mesh, tag)
+    dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"{tag} {header}")
+    return out, {"triangle_count_tiles": launches}
 
 
 def to_cpu(tree):
@@ -4258,6 +4659,10 @@ def main(argv=None) -> int:
     log(f"[time] [gnn train] done at {time.perf_counter() - t_start:.1f} s")
     recsys_runs = recsys_phase(header)
     log(f"[time] [recsys] done at {time.perf_counter() - t_start:.1f} s")
+    shard_runs, shard_launches = shard_phase(
+        header, gnn_runs.pop("_shard_inputs"),
+        recsys_runs.pop("_shard_inputs"))
+    log(f"[time] [shard] done at {time.perf_counter() - t_start:.1f} s")
 
     # -- summary -----------------------------------------------------------
     # each kernel's row: the bin with most launches on its path; launches
@@ -4287,7 +4692,8 @@ def main(argv=None) -> int:
     for name, (r, short, path_launches) in rep.items():
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": path_launches[name],
+            "replaces": meta[name][1],
+            "launches": path_launches[name] + shard_launches.get(name, 0),
             "max_abs_err": errs[short], "ms": r["ms"],
             "device_ms": r["device_ms"], "call_ms": r["call_ms"],
             "launch_floor_ms": r["launch_floor_ms"], "timer": "cuda_graph",
@@ -4310,8 +4716,8 @@ def main(argv=None) -> int:
              "wide": wide_runs, "delta": delta_runs, "serve": serve_runs,
              "baseline": baseline_runs, "truss": truss_runs, "lm": lm_runs,
              "moe": moe_runs, "train": train_runs, "gnn": gnn_runs,
-             "recsys": recsys_runs,
-             "launches": count_launches,
+             "recsys": recsys_runs, "shard": shard_runs,
+             "launches": count_launches, "shard_launches": shard_launches,
              "list_launches": list_launches,
              "edge_launches": edge_launches, "kernels": kernels,
              "ptxas": ptxas,

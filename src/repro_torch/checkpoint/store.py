@@ -14,11 +14,12 @@ other.
   :class:`CorruptCheckpointError` instead of a numpy traceback.  Consumers
   with a rebuild path (plan cache, tune records) pair this with
   :func:`quarantine` to move the bad step aside and fall back to absent.
-* **Placed on restore**: arrays are stored as full host values; where the
-  reference re-``device_put``s them under the restarted mesh's
-  ``shardings=``, the port takes ``device=`` and returns torch tensors on
-  that device (numpy arrays without it).  Torch tensors in a saved tree
-  are copied to the host first.
+* **Placed on restore**: arrays are stored as full host values and
+  placed under the restarted layout, whatever topology wrote them (the
+  reference's ``shardings=``, its elastic-rescale path): ``device=``
+  returns torch tensors on that device (numpy arrays without it), and
+  ``mesh=`` with a spec tree ``specs=`` returns each rank its own
+  blocks.  Torch tensors in a saved tree are copied to the host first.
 * Pipeline state and arbitrary JSON metadata ride along.
 """
 from __future__ import annotations
@@ -137,6 +138,7 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore_checkpoint(directory: str, template=None,
                        step: Optional[int] = None, device=None,
+                       mesh=None, specs=None,
                        _corrupt_site: Optional[str] = None):
     """Restore into the structure of ``template``.
 
@@ -148,7 +150,11 @@ def restore_checkpoint(directory: str, template=None,
 
     ``device``: where the leaves go.  ``None`` returns them as numpy
     arrays; a torch device (``"cpu"``, ``"cuda:0"``) returns torch
-    tensors there, whatever device wrote them.
+    tensors there, whatever device wrote them.  ``mesh`` (a
+    ``DeviceMesh``) with ``specs`` (a tree of partition specs shaped like
+    the tree, ``None`` for a leaf kept whole): each rank gets its blocks
+    (:func:`repro_torch.sharding.spmd.shard_tree`), on ``device`` or else
+    the mesh's device type.
 
     Integrity: when ``meta.json`` carries the length+sha256 trailer (every
     store written since it was introduced), the raw ``arrays.npz`` bytes
@@ -187,7 +193,12 @@ def restore_checkpoint(directory: str, template=None,
         raise CorruptCheckpointError(
             f"{path}: unreadable checkpoint ({exc!r})") from exc
     tree = flat if template is None else _unflatten_into(template, flat)
-    if device is not None:
+    if mesh is not None:
+        from ..sharding.spmd import shard_tree
+        tree = shard_tree(_place(tree, torch.device(
+            device if device is not None else mesh.device_type)),
+            specs, mesh)
+    elif device is not None:
         tree = _place(tree, torch.device(device))
     return {"step": step, "tree": tree, "pipeline": pipeline_state,
             "metadata": metadata}
@@ -247,6 +258,7 @@ def quarantine(directory: str, step: Optional[int] = None,
 
 def restore_checkpoint_safe(directory: str, template=None,
                             step: Optional[int] = None, device=None,
+                            mesh=None, specs=None,
                             _corrupt_site: Optional[str] = None):
     """:func:`restore_checkpoint` with the fall-back-to-absent contract.
 
@@ -256,8 +268,8 @@ def restore_checkpoint_safe(directory: str, template=None,
     propagating deserialization tracebacks.
     """
     try:
-        return restore_checkpoint(directory, template, step, device,
-                                  _corrupt_site=_corrupt_site)
+        return restore_checkpoint(directory, template, step, device, mesh,
+                                  specs, _corrupt_site=_corrupt_site)
     except CorruptCheckpointError as exc:
         quarantine(directory, step, reason=str(exc))
         return None

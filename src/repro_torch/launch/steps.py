@@ -1,47 +1,134 @@
-"""The step functions of the reference's ``launch.steps``.
+"""Per-family step functions + abstract inputs + specs for every
+(architecture x shape) cell: the port of the reference's
+``launch.steps``.
 
-* LM (``lm_train_cell``): M microbatches, each one's loss and grads (f32,
-  since the params are f32) accumulated in f32, the sum divided by M,
-  then one AdamW update with ``AdamWConfig(lr=3e-4,
-  schedule=cosine_schedule(100, 10000))``.
+* LM (``lm_train_cell``, ``lm_prefill_cell``, ``lm_decode_cell``): the
+  gradient-accumulated train step (M microbatches, each one's loss and
+  grads accumulated in f32, the sum divided by M, one AdamW update with
+  ``AdamWConfig(lr=3e-4, schedule=cosine_schedule(100, 10000))``), the
+  prefill and one decode step.
 * GNN (``gnn_train_cell``): one step per arch (GIN, MeshGraphNet, EGNN,
   NequIP) on the cell's padded batch (``_gnn_batch_abs``), AdamW with
   ``AdamWConfig(lr=1e-3, weight_decay=0.0)``.
 * recsys (``recsys_cell``): DCN-v2's train step (``AdamWConfig(lr=1e-3)``),
   its serving forward and its retrieval top-k.
+* clique (``clique_cell``): ``count_packed`` over a batch of tiles, the
+  paper's edge-parallel scheme (Section 6.2(7)).
 
-Only the steps and the shapes they take: the reference's ``Cell``,
-abstract values and shardings belong to its dry run and sharding
-(ROADMAP A13e); without a mesh its sharding constraints (``_gnn_wsc``)
-are the identity, so the port has none.
+A :class:`Cell` holds the step, its abstract arguments (``meta``-device
+tensors, the counterpart of ``ShapeDtypeStruct``) and the partition
+specs of its inputs and outputs (:class:`repro_torch.sharding.P` trees
+filtered to the mesh; ``None`` without one).  With a mesh (a
+``DeviceMesh`` from :mod:`.mesh`) the step runs SPMD: every rank calls
+it on its own blocks of the inputs (``sharding.spmd.shard_tree`` by
+``in_specs``) and gets its blocks of the outputs.
+
+* clique: tiles sharded over every mesh axis; each rank counts its block
+  and the f32 total is summed over all axes.
+* GNN: node and edge arrays sharded over every axis, params replicated;
+  each layer gathers the node rows its edges read and reduce-scatters
+  its sums (the models' ``shard`` hook).  Each rank's loss is its share
+  (the mean of its rows, or of the replicated graph rows, over the
+  number of blocks); the params' grads are summed over all axes before
+  AdamW, so every rank's params stay equal.
+* recsys: table rows over ``model``, the batch over the data axes,
+  candidates over ``model``; grads summed over the data axes.
+* LM cells on a mesh raise ``NotImplementedError`` (ROADMAP A13e-2).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchSpec, ShapeCell
+from ..device import resolve_device
 from ..models import equivariant as eqv
 from ..models import gnn as gnn_mod
 from ..models import recsys as rec
 from ..models import transformer as tr
-from ..optim import (AdamWConfig, adamw_update, cosine_schedule,
+from ..optim import (AdamWConfig, adamw_init, adamw_update, cosine_schedule,
                      tree_leaves, tree_unflatten)
+from ..sharding import spmd
+from ..sharding.rules import P, tree_specs
 
 
 @dataclasses.dataclass
-class TrainStep:
-    """One (arch x train shape) step and the shapes it takes."""
-    step_fn: Callable      # (params, opt_state, batch) -> (params, opt, metrics)
-    cfg: tr.TransformerConfig
-    batch: int             # global batch B
-    seq_len: int           # S
-    microbatches: int      # M (B % M == 0)
-    meta: Dict[str, Any]
+class Cell:
+    """Everything needed to run one (arch x shape) cell.
 
+    ``step_fn`` takes the arguments ``abstract_args`` describes (numpy
+    inputs go to the params' device, or to ``device`` for the clique
+    cell).  A model cell also carries its config ``cfg``, ``init(gen,
+    device)`` drawing its params, and ``grads_fn(params, batch) -> (loss,
+    grads)`` for a train cell (the loss summed and the grads all-reduced
+    over the mesh); ``batch_shapes`` maps each batch input to its
+    (global shape, numpy dtype) in the reference's order; an LM train
+    cell gives its ``batch``, ``seq_len`` and ``microbatches``."""
+    step_fn: Callable
+    abstract_args: Tuple
+    in_specs: Any
+    out_specs: Any
+    meta: Dict[str, Any]
+    cfg: Any = None
+    init: Optional[Callable] = None
+    grads_fn: Optional[Callable] = None
+    batch_shapes: Optional[Dict[str, Tuple[Tuple[int, ...], Any]]] = None
+    device: Optional[torch.device] = None
+    batch: Optional[int] = None
+    seq_len: Optional[int] = None
+    microbatches: Optional[int] = None
+
+
+DATA_AXES = ("pod", "data")
+ALL_AXES = ("pod", "data", "model")
+
+
+def _opt_specs(param_specs):
+    return {"mu": param_specs, "nu": param_specs, "count": P()}
+
+
+def _specs(mesh, tree):
+    return None if mesh is None else tree_specs(mesh, tree)
+
+
+def _model_size(mesh) -> int:
+    if mesh is None or "model" not in spmd.axis_names(mesh):
+        return 1
+    return int(spmd.mesh_sizes(mesh)["model"])
+
+
+def _abstract(shapes: Dict[str, Tuple[Tuple[int, ...], Any]]):
+    """``meta`` tensors of the (shape, numpy dtype) of each input."""
+    return {k: torch.empty(s, dtype=torch.from_numpy(np.empty(0, d)).dtype,
+                           device="meta")
+            for k, (s, d) in shapes.items()}
+
+
+def _init_of(init_fn, cfg):
+    return lambda gen, device: init_fn(gen, cfg, device)
+
+
+def _on(x, device):
+    """A numpy array or tensor as a tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+def _no_mesh_lm(mesh, name: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{name} on a mesh (model axis {_model_size(mesh)}) needs the "
+            "transformer's sharding (ShardCtx, tensor parallelism, the "
+            "expert-parallel MoE): ROADMAP A13e-2")
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
 
 def loss_and_grads(params, batch, cfg: tr.TransformerConfig,
                    microbatches: int) -> Tuple[torch.Tensor, Dict]:
@@ -76,12 +163,22 @@ def loss_and_grads(params, batch, cfg: tr.TransformerConfig,
     return loss_sum / M, tree_unflatten(params, grads)
 
 
-def lm_train_cell(spec: ArchSpec, cell: ShapeCell, reduced: bool = False,
-                  microbatches: int = 16) -> TrainStep:
+def _lm_params_abs(cfg):
+    return tr.init_params(torch.Generator(), cfg, "meta")
+
+
+def _lm_meta(cfg, tokens: int) -> Dict[str, Any]:
+    return {"tokens_per_step": tokens, "model_params": cfg.num_params(),
+            "active_params": cfg.active_params()}
+
+
+def lm_train_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                  reduced: bool = False, microbatches: int = 16) -> Cell:
     """The gradient-accumulated train step of ``cell`` (a train shape of
     ``spec``).  ``reduced`` takes the arch's smoke config at B, S = 2,
     min(S, 64) and one microbatch, as the reference; M falls back to 1
     when it does not divide B."""
+    _no_mesh_lm(mesh, "lm_train_cell")
     cfg: tr.TransformerConfig = spec.reduced if reduced else spec.full
     B, S = cell.dims["global_batch"], cell.dims["seq_len"]
     if reduced:
@@ -90,51 +187,90 @@ def lm_train_cell(spec: ArchSpec, cell: ShapeCell, reduced: bool = False,
     M = microbatches if B % microbatches == 0 else 1
     opt_cfg = AdamWConfig(lr=3e-4, schedule=cosine_schedule(100, 10000))
 
+    def grads_fn(params, batch):
+        return loss_and_grads(params, batch, cfg, M)
+
     def step(params, opt_state, batch):
-        loss, grads = loss_and_grads(params, batch, cfg, M)
+        loss, grads = grads_fn(params, batch)
         params, opt_state, m = adamw_update(grads, opt_state, params,
                                             opt_cfg)
         return params, opt_state, {"loss": loss, **m}
 
-    return TrainStep(step_fn=step, cfg=cfg, batch=B, seq_len=S,
-                     microbatches=M,
-                     meta={"tokens_per_step": B * S,
-                           "model_params": cfg.num_params(),
-                           "active_params": cfg.active_params()})
+    params_abs = _lm_params_abs(cfg)
+    shapes = {"tokens": ((B, S), np.int32), "labels": ((B, S), np.int32)}
+    return Cell(step_fn=step,
+                abstract_args=(params_abs, adamw_init(params_abs),
+                               _abstract(shapes)),
+                in_specs=None, out_specs=None, meta=_lm_meta(cfg, B * S),
+                cfg=cfg, init=_init_of(tr.init_params, cfg),
+                grads_fn=grads_fn, batch_shapes=shapes, batch=B, seq_len=S,
+                microbatches=M)
 
 
-@dataclasses.dataclass
-class ModelCell:
-    """One (arch x shape) cell of the GNN or recsys families.
+def lm_prefill_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                    reduced: bool = False) -> Cell:
+    """The prefill of ``cell``'s (B, S) prompts into an S-long cache:
+    (last-position f32 logits, cache)."""
+    _no_mesh_lm(mesh, "lm_prefill_cell")
+    cfg = spec.reduced if reduced else spec.full
+    B, S = cell.dims["global_batch"], cell.dims["seq_len"]
+    if reduced:
+        B, S = 2, min(S, 64)
 
-    ``step_fn``: ``(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` for a train cell, ``(params, dense, sparse)`` -> logits
-    for a serve cell, ``(params, dense, sparse, cand)`` -> (values,
-    indices) for a retrieval cell; numpy inputs go to the params'
-    device.  ``init(gen, device)`` draws params; ``batch_shapes`` maps
-    each input to its (shape, numpy dtype) in the reference's order."""
-    step_fn: Callable
-    cfg: Any
-    init: Callable
-    batch_shapes: Dict[str, Tuple[Tuple[int, ...], Any]]
-    meta: Dict[str, Any]
+    @torch.no_grad()
+    def step(params, tokens):
+        return tr.prefill(params, _on(tokens, params["embed"].device), cfg,
+                          max_len=S)
 
-
-def _init_of(init_fn, cfg):
-    return lambda gen, device: init_fn(gen, cfg, device)
-
-
-def _on(x, device):
-    """A numpy array or tensor as a tensor on ``device``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.as_tensor(np.asarray(x), device=device)
+    shapes = {"tokens": ((B, S), np.int32)}
+    return Cell(step_fn=step,
+                abstract_args=(_lm_params_abs(cfg),
+                               _abstract(shapes)["tokens"]),
+                in_specs=None, out_specs=None, meta=_lm_meta(cfg, B * S),
+                cfg=cfg, init=_init_of(tr.init_params, cfg),
+                batch_shapes=shapes)
 
 
-def _train_step(loss_of, opt_cfg):
-    """One AdamW step on ``loss_of(params, batch)``'s grads, the batch's
-    arrays moved to the params' device."""
-    def step(params, opt_state, batch):
+def lm_decode_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                   reduced: bool = False) -> Cell:
+    """One decode step of ``cell``'s B sequences against an S-long cache
+    (updated in place): (f32 logits, cache).  ``B == 1`` is the
+    reference's ``long_ctx`` case, whose cache length it shards."""
+    _no_mesh_lm(mesh, "lm_decode_cell")
+    cfg = spec.reduced if reduced else spec.full
+    B, S = cell.dims["global_batch"], cell.dims["seq_len"]
+    if reduced:
+        B, S = 2, min(S, 64)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, lengths):
+        device = params["embed"].device
+        return tr.decode_step(params, cache, _on(tokens, device),
+                              _on(lengths, device).long(), cfg)
+
+    shapes = {"tokens": ((B, 1), np.int32), "lengths": ((B,), np.int32)}
+    ab = _abstract(shapes)
+    meta = {"tokens_per_step": B, "kv_cache_tokens": S,
+            "model_params": cfg.num_params(),
+            "active_params": cfg.active_params()}
+    return Cell(step_fn=step,
+                abstract_args=(_lm_params_abs(cfg),
+                               tr.init_cache(cfg, B, S, "meta"),
+                               ab["tokens"], ab["lengths"]),
+                in_specs=None, out_specs=None, meta=meta, cfg=cfg,
+                init=_init_of(tr.init_params, cfg), batch_shapes=shapes)
+
+
+# ---------------------------------------------------------------------------
+# the train step of the GNN and recsys families
+# ---------------------------------------------------------------------------
+
+def _grads_fn(loss_of, mesh=None, loss_axes=(), grad_axes=()):
+    """``(params, batch) -> (loss, grads)`` of ``loss_of``, the batch's
+    arrays moved to the params' device.  On a mesh ``loss_of`` gives the
+    rank's share: the loss is summed over ``loss_axes`` and the grads
+    over ``grad_axes``."""
+    def grads_fn(params, batch):
         leaves = tree_leaves(params)
         device = leaves[0].device
         for p in leaves:
@@ -147,10 +283,50 @@ def _train_step(loss_of, opt_cfg):
         # NequIP's last l > 0 weights) has a zero grad, as in jax.grad
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        params, opt_state, m = adamw_update(
-            tree_unflatten(params, grads), opt_state, params, opt_cfg)
-        return params, opt_state, {"loss": loss.detach(), **m}
+        spmd.all_reduce_grads(grads, grad_axes, mesh)
+        return (spmd.psum(loss.detach(), loss_axes, mesh),
+                tree_unflatten(params, grads))
+    return grads_fn
+
+
+def _global_norm(grads, pspec, mesh) -> torch.Tensor:
+    """The global norm of a tree of blocks: each leaf's sum of squares
+    summed over the axes its spec shards it on (tree order, as
+    ``global_norm``)."""
+    sq = [spmd.psum(torch.sum(torch.square(g.float())),
+                    [a for part in s or () for a in spmd.part_axes(part)],
+                    mesh)
+          for g, s in zip(tree_leaves(grads), spmd.spec_leaves(pspec))]
+    return torch.sqrt(sum(sq))
+
+
+def _train_step(grads_fn, opt_cfg, pspec=None, mesh=None):
+    """One AdamW step on ``grads_fn``'s grads (on a mesh, their norm
+    over the blocks of ``pspec``)."""
+    def step(params, opt_state, batch):
+        loss, grads = grads_fn(params, batch)
+        gnorm = None if mesh is None else _global_norm(grads, pspec, mesh)
+        params, opt_state, m = adamw_update(grads, opt_state, params,
+                                            opt_cfg, gnorm)
+        return params, opt_state, {"loss": loss, **m}
     return step
+
+
+def _train_cell(loss_of, opt_cfg, init, cfg, shapes, bspec, pspec, mesh,
+                meta, loss_axes, grad_axes) -> Cell:
+    params_abs = init(torch.Generator(), "meta")
+    if pspec is None:
+        pspec = tree_unflatten(params_abs,
+                               [P() for _ in tree_leaves(params_abs)])
+    grads_fn = _grads_fn(loss_of, mesh, loss_axes, grad_axes)
+    mspec = {"loss": P(), "grad_norm": P(), "lr": P()}
+    return Cell(step_fn=_train_step(grads_fn, opt_cfg, pspec, mesh),
+                abstract_args=(params_abs, adamw_init(params_abs),
+                               _abstract(shapes)),
+                in_specs=_specs(mesh, (pspec, _opt_specs(pspec), bspec)),
+                out_specs=_specs(mesh, (pspec, _opt_specs(pspec), mspec)),
+                meta=meta, cfg=cfg, init=init, grads_fn=grads_fn,
+                batch_shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +364,15 @@ def _gnn_batch_abs(spec: ArchSpec, cell: ShapeCell, reduced: bool):
     return N, E, d_feat, n_classes, n_graphs
 
 
+def _gnn_shard(mesh) -> Optional[spmd.Rows]:
+    """The GNN models' sharding hook: node and edge rows in blocks over
+    every mesh axis (the reference's ``_gnn_wsc``); ``None`` without a
+    mesh."""
+    if mesh is None:
+        return None
+    return spmd.Rows(mesh, spmd.present(ALL_AXES, mesh))
+
+
 def one_hot_nll(logits, labels, n_classes: int):
     """The reference's ``-(one_hot(labels) * log_softmax(logits)).sum(-1)
     .mean()``: a label outside ``[0, n_classes)`` one-hots to a zero row,
@@ -199,14 +384,22 @@ def one_hot_nll(logits, labels, n_classes: int):
     return -(picked * valid).mean()
 
 
-def gnn_train_cell(spec: ArchSpec, cell: ShapeCell,
-                   reduced: bool = False) -> ModelCell:
+def gnn_train_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                   reduced: bool = False) -> Cell:
     N, E, d_feat, n_classes, n_graphs = _gnn_batch_abs(spec, cell, reduced)
     base = spec.reduced if reduced else spec.full
     opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.0)
     name = spec.name
+    shard = _gnn_shard(mesh)
+    axes = spmd.present(ALL_AXES, mesh)
+    # each rank's loss is the mean over its rows (or over the replicated
+    # graph rows) divided by the number of blocks: the ranks' shares sum
+    # to the mean over all rows
+    n = spmd.axis_size(mesh, axes)
     f32, i32 = np.float32, np.int32
     graph = {"edges": ((2, E), i32), "edge_mask": ((E,), f32)}
+    nodes, edges = P(ALL_AXES, None), P(None, ALL_AXES)
+    gspec = {"edges": edges, "edge_mask": P(ALL_AXES)}
 
     if name == "gin-tu":
         cfg = dataclasses.replace(base, d_in=d_feat, n_classes=n_classes,
@@ -216,11 +409,12 @@ def gnn_train_cell(spec: ArchSpec, cell: ShapeCell,
         def loss_of(params, batch):
             logits = gnn_mod.gin_forward(params, batch["nodes"],
                                          batch["edges"], batch["edge_mask"],
-                                         cfg)
+                                         cfg, shard=shard)
             return one_hot_nll(logits, batch["labels"], cfg.n_classes)
 
         shapes = {"nodes": ((N, d_feat), f32), **graph,
                   "labels": ((N,), i32)}
+        bspec = {"nodes": nodes, **gspec, "labels": P(ALL_AXES)}
     elif name == "meshgraphnet":
         d_edge = 4
         cfg = dataclasses.replace(base, d_node_in=d_feat, d_edge_in=d_edge,
@@ -230,12 +424,14 @@ def gnn_train_cell(spec: ArchSpec, cell: ShapeCell,
         def loss_of(params, batch):
             out = gnn_mod.mgn_forward(params, batch["nodes"],
                                       batch["edge_feats"], batch["edges"],
-                                      batch["edge_mask"], cfg)
+                                      batch["edge_mask"], cfg, shard=shard)
             return torch.mean((out - batch["targets"]) ** 2)
 
         shapes = {"nodes": ((N, d_feat), f32),
                   "edge_feats": ((E, d_edge), f32), **graph,
                   "targets": ((N, n_classes), f32)}
+        bspec = {"nodes": nodes, "edge_feats": P(ALL_AXES, None), **gspec,
+                 "targets": P(ALL_AXES, None)}
     elif name == "egnn":
         cfg = dataclasses.replace(base, d_in=d_feat, d_out=1)
         init = _init_of(gnn_mod.init_egnn, cfg)
@@ -243,12 +439,15 @@ def gnn_train_cell(spec: ArchSpec, cell: ShapeCell,
         def loss_of(params, batch):
             out, _ = gnn_mod.egnn_forward(
                 params, batch["nodes"], batch["pos"], batch["edges"],
-                batch["edge_mask"], cfg, batch["graph_ids"], n_graphs)
+                batch["edge_mask"], cfg, batch["graph_ids"], n_graphs,
+                shard=shard)
             return torch.mean((out[:, 0] - batch["energy"]) ** 2)
 
         shapes = {"nodes": ((N, d_feat), f32), "pos": ((N, 3), f32),
                   **graph, "graph_ids": ((N,), i32),
                   "energy": ((n_graphs,), f32)}
+        bspec = {"nodes": nodes, "pos": P(ALL_AXES, None), **gspec,
+                 "graph_ids": P(ALL_AXES), "energy": P(None)}
     elif name == "nequip":
         cfg = dataclasses.replace(base, scan_layers=not reduced)
         init = _init_of(eqv.init_nequip, cfg)
@@ -256,53 +455,73 @@ def gnn_train_cell(spec: ArchSpec, cell: ShapeCell,
         def loss_of(params, batch):
             out = eqv.nequip_forward(
                 params, batch["species"], batch["pos"], batch["edges"],
-                batch["edge_mask"], cfg, batch["graph_ids"], n_graphs)
+                batch["edge_mask"], cfg, batch["graph_ids"], n_graphs,
+                shard=shard)
             return torch.mean((out[:, 0] - batch["energy"]) ** 2)
 
         shapes = {"species": ((N, cfg.n_species), f32),
                   "pos": ((N, 3), f32), **graph, "graph_ids": ((N,), i32),
                   "energy": ((n_graphs,), f32)}
+        bspec = {"species": nodes, "pos": P(ALL_AXES, None), **gspec,
+                 "graph_ids": P(ALL_AXES), "energy": P(None)}
     else:
         raise KeyError(name)
 
-    return ModelCell(step_fn=_train_step(loss_of, opt_cfg), cfg=cfg,
-                     init=init, batch_shapes=shapes,
-                     meta={"n_nodes": N, "n_edges": E, "n_graphs": n_graphs})
+    share = loss_of if n == 1 else (lambda p, b: loss_of(p, b) / n)
+    return _train_cell(share, opt_cfg, init, cfg, shapes, bspec, None, mesh,
+                       {"n_nodes": N, "n_edges": E, "n_graphs": n_graphs},
+                       axes, axes)
 
 
 # ---------------------------------------------------------------------------
 # recsys cells
 # ---------------------------------------------------------------------------
 
-def recsys_cell(spec: ArchSpec, cell: ShapeCell,
-                reduced: bool = False) -> ModelCell:
+def recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                reduced: bool = False) -> Cell:
     cfg: rec.DCNConfig = spec.reduced if reduced else spec.full
     kind = cell.kind
     B = cell.dims.get("batch", 256)
     if reduced:
         B = min(B, 16)
     init = _init_of(rec.init_dcn, cfg)
+    params_abs = init(torch.Generator(), "meta")
+    pspec = tree_unflatten(params_abs,
+                           [P() for _ in tree_leaves(params_abs)])
+    pspec["table"] = P("model", None)
     shapes = {"dense": ((B, cfg.n_dense), np.float32),
               "sparse": ((B, cfg.n_sparse, cfg.bag), np.int32)}
+    bspec_d, bspec_s = P(DATA_AXES, None), P(DATA_AXES, None, None)
+    model = spmd.present(("model",), mesh)
+    data = spmd.present(DATA_AXES, mesh)
+    rows = spmd.Rows(mesh, model) if model else None
     meta = {"batch": B}
 
     if kind == "train":
+        n_data = spmd.axis_size(mesh, data)
+
         def loss_of(params, batch):
             logits = rec.dcn_forward(params, batch["dense"], batch["sparse"],
-                                     cfg)
-            return rec.bce_loss(logits, batch["labels"])
+                                     cfg, shard=rows)
+            loss = rec.bce_loss(logits, batch["labels"])
+            return loss if n_data == 1 else loss / n_data
 
         shapes["labels"] = ((B,), np.float32)
-        return ModelCell(_train_step(loss_of, AdamWConfig(lr=1e-3)), cfg,
-                         init, shapes, meta)
+        bspec = {"dense": bspec_d, "sparse": bspec_s, "labels": P(DATA_AXES)}
+        return _train_cell(loss_of, AdamWConfig(lr=1e-3), init, cfg, shapes,
+                           bspec, pspec, mesh, meta, data, data)
+    ab = _abstract(shapes)
     if kind == "serve":
         @torch.no_grad()
         def step(params, dense, sparse):
             device = params["table"].device
             return rec.dcn_forward(params, _on(dense, device),
-                                   _on(sparse, device), cfg)
+                                   _on(sparse, device), cfg, shard=rows)
 
-        return ModelCell(step, cfg, init, shapes, meta)
+        return Cell(step, (params_abs, ab["dense"], ab["sparse"]),
+                    _specs(mesh, (pspec, bspec_d, bspec_s)),
+                    _specs(mesh, P(DATA_AXES)), meta, cfg=cfg, init=init,
+                    batch_shapes=shapes)
     if kind == "retrieval":
         n_cand = 4096 if reduced else cell.dims["n_candidates"]
 
@@ -312,9 +531,100 @@ def recsys_cell(spec: ArchSpec, cell: ShapeCell,
             return rec.retrieval_scores(params, _on(dense, device),
                                         _on(sparse, device),
                                         _on(cand, device), cfg,
-                                        topk=min(100, n_cand))
+                                        topk=min(100, n_cand), shard=rows,
+                                        cand_shard=rows)
 
         shapes["cand"] = ((n_cand, cfg.mlp_dims[-1]), np.float32)
-        return ModelCell(step, cfg, init, shapes,
-                         {**meta, "n_candidates": n_cand})
+        ospec = (P(None, None), P(None, None))
+        return Cell(step, (params_abs, ab["dense"], ab["sparse"],
+                           _abstract(shapes)["cand"]),
+                    _specs(mesh, (pspec, P(None, None), P(None, None, None),
+                                  P("model", None))),
+                    _specs(mesh, ospec), {**meta, "n_candidates": n_cand},
+                    cfg=cfg, init=init, batch_shapes=shapes)
     raise KeyError(kind)
+
+
+# ---------------------------------------------------------------------------
+# clique-engine cells (the paper's own arch)
+# ---------------------------------------------------------------------------
+
+def _words(x, device) -> torch.Tensor:
+    """Packed words (uint32 numpy, or an int32 tensor) as the int32 word
+    view on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.ascontiguousarray(x)
+    return torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32
+                            else x).to(device)
+
+
+def clique_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                reduced: bool = False, device=None) -> Cell:
+    """``count_packed`` over a (B, T, W) batch of tiles and its (B, W)
+    candidate words: (f32 total of the per-tile counts, nv, t, f).  On a
+    mesh the tiles are split over every axis, each rank counts its
+    block (the triangle kernel at l = 3 on the card) and the total is
+    summed over all axes; ``nv``, ``t``, ``f`` stay sharded."""
+    from ..core import engine_torch
+    d = dict(cell.dims)
+    B = 256 if reduced else d["n_tiles"]
+    T = 32 if reduced else d["T"]
+    l = d["l"]
+    W = T // 32
+    method = "mxu" if l == 3 else "ref"
+    axes = spmd.present(ALL_AXES, mesh)
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device_type)
+
+    def step(A, cand):
+        hard, nv, t, f = engine_torch.count_packed(
+            _words(A, dev), _words(cand, dev), l, method=method, et=True)
+        total = spmd.psum(hard.float().sum(), axes, mesh)
+        return total, nv, t, f
+
+    shapes = {"A": ((B, T, W), np.int32), "cand": ((B, W), np.int32)}
+    ab = _abstract(shapes)
+    ts, cs = P(ALL_AXES, None, None), P(ALL_AXES, None)
+    return Cell(step_fn=step, abstract_args=(ab["A"], ab["cand"]),
+                in_specs=_specs(mesh, (ts, cs)),
+                out_specs=_specs(mesh, (P(), P(ALL_AXES), P(ALL_AXES),
+                                        P(ALL_AXES))),
+                meta={"n_tiles": B, "T": T, "l": l, "method": method},
+                batch_shapes=shapes, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def build_cell(spec: ArchSpec, shape_name: str, mesh=None,
+               reduced: bool = False, device=None) -> Cell:
+    """The cell ``shape_name`` of ``spec``.  ``device``: where the cell
+    runs (the CUDA device by default, raising without one; a mesh's own
+    device type with a mesh)."""
+    cell = spec.cells[shape_name]
+    if cell.skip:
+        raise ValueError(f"cell {spec.name}/{shape_name} is skipped: "
+                         f"{cell.skip}")
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device_type)
+    if spec.family == "clique":
+        return clique_cell(spec, cell, mesh, reduced, dev)
+    if spec.family == "lm":
+        if cell.kind == "train":
+            out = lm_train_cell(spec, cell, mesh, reduced)
+        elif cell.kind == "prefill":
+            out = lm_prefill_cell(spec, cell, mesh, reduced)
+        elif cell.kind == "decode":
+            out = lm_decode_cell(spec, cell, mesh, reduced)
+        else:
+            raise KeyError((spec.family, cell.kind))
+    elif spec.family == "gnn":
+        out = gnn_train_cell(spec, cell, mesh, reduced)
+    elif spec.family == "recsys":
+        out = recsys_cell(spec, cell, mesh, reduced)
+    else:
+        raise KeyError((spec.family, cell.kind))
+    out.device = dev
+    return out

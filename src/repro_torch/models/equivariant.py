@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from .common import apply_mlp, init_mlp
 from .gnn import _index, _pool, _remat
-from .scatter import gather_rows, segment_sum
+from .scatter import full_rows, gather_rows, num_rows, own_rows, segment_sum
 
 L_MAX = 2
 
@@ -188,17 +188,19 @@ def init_nequip(gen: torch.Generator, cfg: NequIPConfig, device):
 
 
 def nequip_forward(params, species_onehot, positions, edges, edge_mask,
-                   cfg: NequIPConfig, graph_ids=None, n_graphs: int = 1):
+                   cfg: NequIPConfig, graph_ids=None, n_graphs: int = 1,
+                   shard=None):
     """species_onehot: (N, n_species); positions: (N, 3); edges: (2, E).
 
     Returns per-graph energy (n_graphs, 1) if graph_ids given else (N, 1)
-    per-node energies.
+    per-node energies.  ``shard``: the sharding hook (:mod:`.scatter`).
     """
     paths = _paths(cfg)
     N = positions.shape[0]
-    ei, edge_mask = _index(edges, edge_mask, N)
+    ei, edge_mask = _index(edges, edge_mask, num_rows(positions, shard))
     src, dst = ei.src, ei.dst
-    vec = positions.index_select(0, src) - positions.index_select(0, dst)
+    pos = full_rows(positions, shard)
+    vec = pos.index_select(0, src) - pos.index_select(0, dst)
     r = torch.linalg.norm(vec, dim=-1)
     rhat = vec / torch.clamp_min(r[:, None], 1e-6)
     # zero-length (self-loop / padded) edges would contribute constant,
@@ -219,15 +221,16 @@ def nequip_forward(params, species_onehot, positions, edges, edge_mask,
         w_all = apply_mlp(layer["radial"], rbf, act="silu")    # (E, P*mult)
         w_all = w_all.reshape(-1, len(paths), cfg.mult)
         msg = {l: 0.0 for l in range(cfg.l_max + 1)}
+        hf = {l: full_rows(v, shard) for l, v in h.items()}
         for pi, (l1, l2, l3, _) in enumerate(paths):
-            hj = gather_rows(h[l1], src, ei.by_src)            # (E, mult, d1)
+            hj = gather_rows(hf[l1], src, ei.by_src)           # (E, mult, d1)
             w = w_all[:, pi] * edge_mask[:, None]              # (E, mult)
             # m[e, m, c] = w * sum_ab C[a,b,c] hj[e,m,a] Y_l2[e,b]
             m = torch.einsum("ema,abc,eb->emc", hj, Cs[pi], Y[l2])
             msg[l3] = msg[l3] + m * w[:, :, None]
         upd = {}
         for l in range(cfg.l_max + 1):
-            agg = segment_sum(msg[l], ei.by_dst) \
+            agg = own_rows(segment_sum(msg[l], ei.by_dst), shard) \
                 if not isinstance(msg[l], float) else 0.0
             upd[l] = h[l] + torch.einsum(
                 "nmd,mk->nkd", agg, layer["self"][str(l)]) \
@@ -248,5 +251,5 @@ def nequip_forward(params, species_onehot, positions, edges, edge_mask,
 
     energy = apply_mlp(params["head"], h[0][:, :, 0], act="silu")  # (N, 1)
     if graph_ids is not None:
-        return _pool(energy, graph_ids, n_graphs)
+        return _pool(energy, graph_ids, n_graphs, shard)
     return energy

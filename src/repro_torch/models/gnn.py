@@ -15,6 +15,12 @@ Graphs arrive as fixed-shape padded batches:
   edges  (2, E) int (src, dst), padded with N-1 self loops + edge_mask
   edge_mask (E,) float {0,1}
 
+Each forward takes the reference's sharding hook as ``shard`` (see
+:mod:`.scatter`): ``None`` runs on the whole graph; a
+:class:`repro_torch.sharding.spmd.Rows` runs on this rank's node and
+edge blocks (edge ids global), gathering the node rows a layer reads and
+reduce-scattering its sums.
+
 One deliberate difference: EGNN's coordinate step divides by
 ``sqrt(max(d2, 1))`` where the reference has ``max(sqrt(d2), 1)``, the
 same value, so that a zero-length edge (a self loop) gives a zero
@@ -35,8 +41,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .common import apply_mlp, init_mlp, layer_norm
-from .scatter import (EdgeIndex, edge_index, gather_rows, propagate,
-                      segment_max, segment_sum, segments)
+from .scatter import (EdgeIndex, edge_index, full_rows, gather_rows,
+                      num_rows, own_rows, propagate, segment_max,
+                      segment_sum, segments, total)
 
 
 def scatter_sum(messages, dst, num_nodes):
@@ -61,8 +68,8 @@ def _remat(fn, *args):
     return fn(*args)
 
 
-def _pool(h, graph_ids, n_graphs):
-    return segment_sum(h, segments(graph_ids, n_graphs))
+def _pool(h, graph_ids, n_graphs, shard=None):
+    return total(segment_sum(h, segments(graph_ids, n_graphs)), shard)
 
 
 def _index(edges, edge_mask, num_nodes, ei: Optional[EdgeIndex] = None):
@@ -103,14 +110,14 @@ def init_gin(gen: torch.Generator, cfg: GINConfig, device):
 
 def gin_forward(params, nodes, edges, edge_mask, cfg: GINConfig,
                 graph_ids=None, n_graphs: int = 1,
-                ei: Optional[EdgeIndex] = None):
+                ei: Optional[EdgeIndex] = None, shard=None):
     """``ei``: the edges' :func:`.scatter.edge_index`, when the caller
     holds it (built here otherwise)."""
     h = nodes
-    ei, w = _index(edges, edge_mask, h.shape[0], ei)
+    ei, w = _index(edges, edge_mask, num_rows(h, shard), ei)
 
     def one_layer(h, layer, eps):
-        agg = propagate(h, w, ei)
+        agg = own_rows(propagate(full_rows(h, shard), w, ei), shard)
         h = (1.0 + eps) * h + agg
         h = apply_mlp(layer["mlp"], h, act="relu", final_act=True)
         return layer_norm(h, layer["ln"]["scale"], layer["ln"]["bias"])
@@ -122,7 +129,8 @@ def gin_forward(params, nodes, edges, edge_mask, cfg: GINConfig,
     if cfg.graph_level:
         if graph_ids is None:
             raise ValueError("graph_level GIN needs graph_ids")
-        return apply_mlp(params["head"], _pool(h, graph_ids, n_graphs))
+        return apply_mlp(params["head"], _pool(h, graph_ids, n_graphs,
+                                               shard))
     return apply_mlp(params["head"], h)
 
 
@@ -163,18 +171,20 @@ def init_mgn(gen: torch.Generator, cfg: MGNConfig, device):
     return params
 
 
-def mgn_forward(params, nodes, edge_feats, edges, edge_mask, cfg: MGNConfig):
-    ei, w = _index(edges, edge_mask, nodes.shape[0])
+def mgn_forward(params, nodes, edge_feats, edges, edge_mask, cfg: MGNConfig,
+                shard=None):
+    ei, w = _index(edges, edge_mask, num_rows(nodes, shard))
     w = w[:, None]
     h = apply_mlp(params["node_enc"], nodes, act="relu", final_act=True)
     e = apply_mlp(params["edge_enc"], edge_feats.index_select(0, ei.perm),
                   act="relu", final_act=True)
 
     def one_block(h, e, blk):
-        e_in = torch.cat([e, gather_rows(h, ei.src, ei.by_src),
-                          gather_rows(h, ei.dst, ei.by_dst)], dim=-1)
+        hf = full_rows(h, shard)
+        e_in = torch.cat([e, gather_rows(hf, ei.src, ei.by_src),
+                          gather_rows(hf, ei.dst, ei.by_dst)], dim=-1)
         e = e + apply_mlp(blk["edge"], e_in, act="relu", final_act=True)
-        agg = segment_sum(e * w, ei.by_dst)
+        agg = own_rows(segment_sum(e * w, ei.by_dst), shard)
         h = h + apply_mlp(blk["node"], torch.cat([h, agg], -1), act="relu",
                           final_act=True)
         return h, e
@@ -211,25 +221,27 @@ def init_egnn(gen: torch.Generator, cfg: EGNNConfig, device):
 
 
 def egnn_forward(params, h0, x0, edges, edge_mask, cfg: EGNNConfig,
-                 graph_ids=None, n_graphs: int = 1):
+                 graph_ids=None, n_graphs: int = 1, shard=None):
     """h0: (N, d_in) invariant feats; x0: (N, 3) coordinates.
 
     Returns (out, x): invariant per-graph (or per-node) output + updated
     equivariant coordinates.
     """
-    ei, w = _index(edges, edge_mask, h0.shape[0])
+    ei, w = _index(edges, edge_mask, num_rows(h0, shard))
     w = w[:, None]
     # scatter_mean's count: every edge of the segment, masked or not
-    count = ei.by_dst.counts().to(x0.dtype).clamp_min(1.0)[:, None]
+    count = own_rows(ei.by_dst.counts().to(x0.dtype), shard) \
+        .clamp_min(1.0)[:, None]
     h = apply_mlp(params["embed"], h0)
     x = x0
 
     def one_layer(h, x, layer):
-        dx = gather_rows(x, ei.src, ei.by_src) - gather_rows(x, ei.dst,
-                                                             ei.by_dst)
+        xf, hf = full_rows(x, shard), full_rows(h, shard)
+        dx = gather_rows(xf, ei.src, ei.by_src) - gather_rows(xf, ei.dst,
+                                                              ei.by_dst)
         d2 = torch.sum(dx * dx, dim=-1, keepdim=True)
-        m_in = torch.cat([gather_rows(h, ei.src, ei.by_src),
-                          gather_rows(h, ei.dst, ei.by_dst), d2], dim=-1)
+        m_in = torch.cat([gather_rows(hf, ei.src, ei.by_src),
+                          gather_rows(hf, ei.dst, ei.by_dst), d2], dim=-1)
         m = apply_mlp(layer["phi_e"], m_in, act="silu", final_act=True)
         m = m * w
         wx = apply_mlp(layer["phi_x"], m, act="silu")         # (E, 1)
@@ -238,8 +250,8 @@ def egnn_forward(params, h0, x0, edges, edge_mask, cfg: EGNNConfig,
         # NaN gradient (0 x the infinite slope of sqrt at 0) wherever x
         # carries one: from the second layer on, when a later layer reads x
         coef = wx / torch.sqrt(torch.clamp_min(d2, 1.0))
-        x = x + segment_sum(dx * coef * w, ei.by_dst) / count
-        agg = segment_sum(m, ei.by_dst)
+        x = x + own_rows(segment_sum(dx * coef * w, ei.by_dst), shard) / count
+        agg = own_rows(segment_sum(m, ei.by_dst), shard)
         h = h + apply_mlp(layer["phi_h"], torch.cat([h, agg], -1),
                           act="silu", final_act=True)
         return h, x
@@ -247,6 +259,7 @@ def egnn_forward(params, h0, x0, edges, edge_mask, cfg: EGNNConfig,
     for layer in params["layers"]:
         h, x = _remat(one_layer, h, x, layer)
     if graph_ids is not None:
-        return apply_mlp(params["head"], _pool(h, graph_ids, n_graphs)), x
+        return apply_mlp(params["head"], _pool(h, graph_ids, n_graphs,
+                                               shard)), x
     return apply_mlp(params["head"], h), x
 

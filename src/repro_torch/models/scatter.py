@@ -15,6 +15,14 @@ once and reused); :func:`segment_sum` sums rows by it,
 without keeping the (E, d) messages (GIN's layer).  Ids outside
 ``[0, num)`` are dropped, as ``jax.ops.segment_sum`` drops them; an
 empty segment sums to 0 and its ``max`` is -inf, as in the reference.
+
+The models' SPMD hooks sit where the reference applies its sharding
+constraints: ``shard`` is ``None`` (every hook the identity) or a
+:class:`repro_torch.sharding.spmd.Rows` splitting node and edge rows in
+blocks over the mesh.  A layer then gathers the node rows its edges read
+(:func:`full_rows`), works on its own edge block, sums into a full-size
+partial and reduce-scatters it back to its node block (:func:`own_rows`);
+a graph readout sums the ranks' partials (:func:`total`).
 """
 from __future__ import annotations
 
@@ -166,3 +174,26 @@ def propagate(h: torch.Tensor, w: torch.Tensor, ei: EdgeIndex
         return _weighted_sum(h, w, ei.src, ei.by_dst.offsets)
     return _Propagate.apply(h, w.detach(), ei.src, ei.by_dst.offsets,
                             ei.by_src.order, ei.by_src.offsets, ei.dst)
+
+
+def full_rows(x: torch.Tensor, shard) -> torch.Tensor:
+    """Every rank's block of rows, in block order (``x`` without a
+    shard)."""
+    return x if shard is None else shard.gather(x)
+
+
+def own_rows(x: torch.Tensor, shard) -> torch.Tensor:
+    """This rank's block of the sum over ranks of the full-size partial
+    ``x`` (``x`` without a shard)."""
+    return x if shard is None else shard.scatter(x)
+
+
+def total(x: torch.Tensor, shard) -> torch.Tensor:
+    """The sum over ranks of the partial ``x`` (``x`` without a
+    shard)."""
+    return x if shard is None else shard.psum_partials(x)
+
+
+def num_rows(x: torch.Tensor, shard) -> int:
+    """The global row count of ``x``'s rows."""
+    return x.shape[0] if shard is None else x.shape[0] * shard.size

@@ -25,7 +25,7 @@ f32 with a -1e30 additive bias, softmax in f32 cast to ``v``'s dtype),
 so the port agrees with it within f32 rounding.
 
 Not here: sharding (the reference's ``ShardCtx``, ``_gather_layer`` and
-the expert-parallel ``shard_map`` of ``moe_ffn``; ROADMAP A13e).
+the expert-parallel ``shard_map`` of ``moe_ffn``; ROADMAP A13e-2).
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ class TransformerConfig:
     remat: bool = True               # checkpoint each layer under grad
     q_block: int = 512               # query block for chunked attention
     analysis_unroll: bool = False    # the reference's cost-analysis mode,
-    #   which belongs to its dry run (ROADMAP A13e); kept as data here
+    #   which belongs to its dry run (ROADMAP A13e-2); kept as data here
     groups_override: Any = None      # ((kind, count), ...) probe override
 
     @property

@@ -81,11 +81,15 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, cfg: AdamWConfig):
+def adamw_update(grads, state, params, cfg: AdamWConfig,
+                 gnorm: Optional[torch.Tensor] = None):
     """Returns (params, state, metrics), params and state updated in
-    place; metrics are ``grad_norm`` (before the clip) and ``lr``."""
+    place; metrics are ``grad_norm`` (before the clip) and ``lr``.
+    ``gnorm``: the grads' global norm when the caller computes it (a
+    tree whose leaves are blocks of sharded arrays)."""
     count = state["count"].add_(1)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm) \
         if cfg.clip_norm is not None else None
     lr = cfg.lr * (cfg.schedule(count) if cfg.schedule else 1.0)

@@ -1354,3 +1354,58 @@ def test_gnn_twin_runs_on_card(cuda):
     assert out["acc"] > 0.9
     np.testing.assert_array_equal(
         out["features"], mod.clique_features(out["graph"], backend="host"))
+
+
+# ---------------------------------------------------------------------------
+# sharding on one card (A13e-1)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A 1-rank NCCL mesh (1, 1) on the card; the group is torn down
+    after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    assert not dist.is_initialized()
+    mesh = make_local_mesh((1, 1))
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_make_local_mesh_on_card(nccl_mesh):
+    import torch.distributed as dist
+    from repro_torch.sharding import spmd
+    assert nccl_mesh.device_type == "cuda"
+    assert dist.get_backend() == "nccl"
+    assert spmd.mesh_sizes(nccl_mesh) == {"data": 1, "model": 1}
+    x = torch.arange(6., device="cuda").reshape(3, 2)
+    assert torch.equal(spmd.psum(x, ("data", "model"), nccl_mesh), x)
+    assert torch.equal(spmd.all_gather_rows(x, ("data",), nccl_mesh), x)
+    assert torch.equal(spmd.reduce_scatter_rows(x, ("model",), nccl_mesh),
+                       x)
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+def test_clique_cell_on_nccl_mesh_equals_count_packed(nccl_mesh, T):
+    """``clique_cell`` on the 1-rank NCCL mesh runs the triangle kernel
+    and equals the unsharded ``count_packed`` on the same tiles: nv, t,
+    f bitwise, the f32 total the exact sum of the per-tile counts."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.sharding import spmd
+    spec = configs.get("ebbkc")
+    cell_shape = dataclasses.replace(spec.cells["ep_tri_1m"],
+                                     dims=dict(n_tiles=2048, T=T, l=3))
+    cell = steps.clique_cell(spec, cell_shape, nccl_mesh)
+    A, cand = (x.cuda() for x in random_tiles(T, 2048, T, _DENSITY[T]))
+    ts, cs = cell.in_specs
+    ops.reset_counts()
+    total, nv, t, f = cell.step_fn(spmd.shard(A, ts, nccl_mesh),
+                                   spmd.shard(cand, cs, nccl_mesh))
+    assert ops.launch_counts()["triangle_count_tiles"] > 0
+    hard, nv_u, t_u, f_u = engine_torch.count_packed(A, cand, 3,
+                                                     method="mxu")
+    for a, b in ((nv, nv_u), (t, t_u), (f, f_u)):
+        assert torch.equal(a, b)
+    assert float(total) == int(hard.sum())
