@@ -57,15 +57,16 @@ the whole smoke stays inside its time limit:
   against its plain version and timed beside the same tiles packed at
   the next power of two, and the k = 7 count of the scale-13 graph under
   the ``mult32`` ladder on the warm plan;
-* plan persistence (``[persist]``): ``save_plan`` of the scale-15 plan,
-  a fresh launcher process that loads it with ``--plan-cache`` and counts
-  k = 5, and a corrupt scale-12 store (``plan.load=1.0:corrupt``)
-  quarantined and rebuilt;
+* plan persistence (``[persist]``): ``save_plan`` / ``load_plan`` of the
+  scale-15 plan, and a corrupt scale-12 store (``plan.load=1.0:corrupt``)
+  quarantined and rebuilt by a fresh launcher process;
 * the tuner (``[tune]``): ``tune_geometry`` for counting (l = 5) and
   listing (l = 3) persisted to a tune cache (the library of the build
   copied into it), a fresh launcher process that counts k = 7 on the
   scale-12 graph with ``--tune-cache`` on the tuned geometry without a
-  search, and the ``autotune`` backend's kernel-vs-plain measurement,
+  search and with ``--plan-cache`` on ``[persist]``'s rebuilt store
+  (loaded warm), and the ``autotune`` backend's kernel-vs-plain
+  measurement,
   whose winner the card reports and does not obey;
 * tiles wider than 256 (``[wide]``): the ``-Xptxas -v`` report of the
   kernels' wide path, the four kernels at T = 288, 512, 1056 and 2048
@@ -89,8 +90,8 @@ the whole smoke stays inside its time limit:
 * the paper baseline (``[baseline]``): VBBkC (``vbbkc.count``, DDegCol
   and DDegCol+, a host recursion as in the reference) at k = 5 and 6 on
   the same generator at scale 11, each equal to the card's
-  ``ebbkc.count`` and the pinned count, Lemma 4.1 by ``tau_delta_gap``,
-  and ``examples/quickstart_torch.py`` in a fresh process on the card;
+  ``ebbkc.count`` and the pinned count, Lemma 4.1 by ``tau_delta_gap``
+  (its quickstart twin runs in ``[train]``'s batch of fresh processes);
 * the on-device truss (``[truss]``): ``truss_decomposition_torch`` on the
   scale-12 graph on the card, trussness and tau equal to the host
   peeler's, both times;
@@ -102,7 +103,11 @@ the whole smoke stays inside its time limit:
   ``LM_ATOL``, three planted faults (a wrong position, another request's
   cache, a lost cache entry) each beyond it, every id inside the padded
   vocab, prefill and decode tok/s, peak memory and the device's busy share of
-  one run under the profiler; and the reduced granite-3-8b
+  one run under the profiler; the prefill and two teacher-forced decode
+  steps on a 1-rank NCCL mesh (``launch.steps.lm_ctx``: the sharded code
+  path, its collectives the identity) equal to the unsharded run to the
+  bit;
+  and the reduced granite-3-8b
   and gemma3-27b configs (local windows) on the card against the port's
   CPU run on the same params;
 * the MoE serving path (``[moe serve]``): ``launch.serve`` at
@@ -112,16 +117,21 @@ the whole smoke stays inside its time limit:
   ``forward``, a dropless f32 decode step against f32 ``forward`` with
   the smallest top-6 router gap, two planted routing faults beyond
   ``LM_ATOL``, ids in the vocab and equal tokens over runs, init time,
-  tok/s, peak memory and busy share; the reduced deepseek-moe-16b and
+  tok/s, peak memory and busy share; the same 1-rank NCCL mesh check at
+  full depth (each rank's expert range in); the reduced deepseek-moe-16b and
   dbrx-132b configs on the card against the CPU;
 * training (``[train]``): granite-3-8b at its published widths cut to 8
   layers, seq 4,096, a batch of 4 in 2 microbatches, remat on, 3 steps of
   ``launch.steps``' train step through ``TrainLoop`` (step time,
   tokens/s, peak memory, busy share; step 0 in bf16 against an f32 pass),
-  ``launch.train`` in fresh processes (reduced granite-3-8b, crashed and
-  resumed bitwise, and reduced deepseek-moe-16b), the reduced configs
-  trained on the card against the CPU, and
-  ``examples/train_lm_torch.py``;
+  ``launch.train`` in fresh processes (reduced granite-3-8b, crashed
+  and resumed bitwise, the crashed run started before ``[lm serve]``,
+  and reduced deepseek-moe-16b), ``examples/train_lm_torch.py`` and
+  ``[baseline]``'s ``examples/quickstart_torch.py`` (its device engine
+  equal to the host recursion), five fresh processes run while the card
+  checks the trained params' loss and grads on a 1-rank NCCL mesh
+  against the unsharded cell's and trains the reduced configs against
+  the CPU;
 * GNN training (``[gnn train]``): each GNN arch at its published config
   through ``launch.train.build`` and ``TrainLoop`` on the cell shape
   that the reference pads: gin-tu on ogb_products (N = 2,449,408, E =
@@ -147,7 +157,16 @@ the whole smoke stays inside its time limit:
   ``count_packed``, the kernel against its plain version on a 4,096-tile
   slice, the f32 total beside the exact int64 sum), ``ep_tri_1m`` on two
   spawned ranks of the one card over gloo (their blocks against the
-  1-rank run), one sharded gin-tu step on ``[gnn train]``'s ogb_products
+  1-rank run), then on the same two ranks the transformer's sharding
+  against the unsharded runs that ``[lm serve]``, ``[moe serve]`` and
+  ``[train]`` saved: granite-3-8b at full width and depth on (1, 2)
+  (tensor parallelism: prefill and two teacher-forced decode steps within
+  ``LM_ATOL``), deepseek-moe-16b at full width cut to 8 layers on (1, 2)
+  (expert parallelism, f32), and the granite-3-8b train step at full
+  width cut to 2 layers, seq 4,096, B = 2 on (2, 1) (FSDP: loss and grad
+  norm within ``TRAIN_REL``, replicated leaves bitwise equal across the
+  ranks), each rank drawing the unsharded leaves and keeping its block;
+  one sharded gin-tu step on ``[gnn train]``'s ogb_products
   batch and params and one sharded dcn-v2 train step and retrieval
   query against their unsharded twins, and ``compressed_allreduce`` over
   a 100M-element gradient against its single-process round trip.  The
@@ -1621,11 +1640,11 @@ def dir_bytes(path) -> int:
 
 def persist_phase(g, plan, lg, lplan, main_runs) -> dict:
     """``[persist]``: ``save_plan`` of the warm rmat15 plan and
-    ``load_plan`` of its store (seconds, bytes, the tables equal); a fresh
-    process counting k = 5 on rmat12 with ``--plan-cache`` loads that
-    graph's store from disk (exact, ``warm``); and a store read under
-    ``plan.load=1.0:corrupt`` (through REPRO_TORCH_FAULT_PLAN) is
-    quarantined and rebuilt, and the count stays exact."""
+    ``load_plan`` of its store (seconds, bytes, the tables equal); the
+    rmat12 store saved for a fresh process, which first reads it under
+    ``plan.load=1.0:corrupt`` (through REPRO_TORCH_FAULT_PLAN): it is
+    quarantined and rebuilt, and the count stays exact.  ``[tune]``'s
+    fresh process then loads the rebuilt store from disk (``warm``)."""
     import shutil
     import numpy as np
     from repro_torch.core import pipeline
@@ -1653,20 +1672,6 @@ def persist_phase(g, plan, lg, lplan, main_runs) -> dict:
         fail("the loaded rmat15 plan differs from the saved one")
     lkey = pipeline.plan_key(lg, "hybrid")
     pipeline.save_plan(lplan, str(base / lkey))
-    text, wall = run_cli(["--graph", f"rmat:{LIST_SCALE},{RMAT_EDGE_FACTOR}",
-                          "--k", "5", "--plan-cache", str(base)])
-    m = re.search(r"plan cache \[.*\]: warm \(decomposition skipped\), "
-                  r"([0-9.]+)s", text)
-    if m is None:
-        fail("the second process did not load the rmat12 plan from disk")
-    count = cli_count(text, 5)
-    out["cli"] = dict(count=count, load_s=float(m.group(1)),
-                      process_wall_s=wall)
-    log(f"[persist] fresh process, --plan-cache: rmat12 count={count}, plan "
-        f"loaded in {out['cli']['load_s']:.2f} s; process wall {wall:.1f} s")
-    if count != EXPECTED_LIST[5][0]:
-        fail(f"--plan-cache k=5 counted {count}, expected "
-             f"{EXPECTED_LIST[5][0]}")
     text, _ = run_cli(["--graph", f"rmat:{LIST_SCALE},{RMAT_EDGE_FACTOR}",
                        "--k", "5", "--plan-cache", str(base)],
                       env_extra={"REPRO_TORCH_FAULT_PLAN":
@@ -1691,7 +1696,9 @@ def tune_phase(g, main_runs) -> dict:
     for counting at l = 5 and listing at l = 3, persisted to a tune cache
     (whose ``kernels/`` the library is built into); a fresh process with
     ``--tune-cache`` then resolves the count geometry from the record
-    (``tune_hit=True``, no search) and counts k = 7 on rmat12 exactly;
+    (``tune_hit=True``, no search) and counts k = 7 on rmat12 exactly,
+    its plan loaded from ``[persist]``'s rebuilt store (``warm``, the
+    decomposition skipped: one process checks both stores);
     finally the kernel-vs-plain microbenchmark of ``autotune`` at
     (count, l = 5, T = 32), whose winner a CUDA lane reports and does not
     obey: the kernel runs, no plain version."""
@@ -1738,12 +1745,19 @@ def tune_phase(g, main_runs) -> dict:
              "--tune-cache", str(base), "--plan-cache", str(plans)])
         count = cli_count(text, 7)
         ran = re.search(r"geometry: bins=([0-9,]+)", text)
+        warm = re.search(r"plan cache \[.*\]: warm \(decomposition "
+                         r"skipped\), ([0-9.]+)s", text)
         out["cli"] = dict(count=count, wall_s=wall,
                           bins=ran.group(1) if ran else None,
-                          tune_hit="tune_hit=True" in text)
-        log(f"[tune] fresh process, --tune-cache: count={count}, bins "
-            f"{out['cli']['bins']} (record: {want_bins}), tune_hit="
-            f"{out['cli']['tune_hit']}, {wall:.1f} s")
+                          tune_hit="tune_hit=True" in text,
+                          plan_load_s=float(warm.group(1)) if warm else None)
+        log(f"[tune] fresh process, --tune-cache and --plan-cache: count="
+            f"{count}, bins {out['cli']['bins']} (record: {want_bins}), "
+            f"tune_hit={out['cli']['tune_hit']}, rmat12 plan loaded from "
+            f"[persist]'s store in {out['cli']['plan_load_s']} s (warm); "
+            f"process wall {wall:.1f} s")
+        if warm is None:
+            fail("the fresh process did not load the rmat12 plan from disk")
         if (count != EXPECTED_12_K7 or not out["cli"]["tune_hit"]
                 or out["cli"]["bins"] != want_bins):
             fail(f"--tune-cache k=7 did not run the tuned geometry exactly: "
@@ -2500,8 +2514,8 @@ def baseline_phase() -> dict:
     recursion, as in the reference) with ``ddegcol`` and ``ddegcol+`` at
     k = 5 and 6 on rmat11, each equal to the card's ``ebbkc.count`` on the
     same graph and to the pinned count; Lemma 4.1 (tau < delta) by
-    ``tau_delta_gap``; the quickstart twin in a fresh process on the
-    card."""
+    ``tau_delta_gap``.  Its quickstart twin runs in ``[train]``'s batch of
+    fresh processes (:func:`train_launcher_checks`)."""
     from repro_torch.core import ebbkc, vbbkc
     from repro_torch.core.truss import tau_delta_gap
     from repro_torch.data.graphs import rmat_graph
@@ -2542,19 +2556,6 @@ def baseline_phase() -> dict:
         f"tau < delta: {tau < delta})")
     if not tau < delta:
         fail("[baseline] tau >= delta")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
-        cwd=ROOT, env=child_env(), capture_output=True, text=True,
-        timeout=600)
-    wall = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    log(f"[baseline] examples/quickstart_torch.py ({wall:.1f} s, exit "
-        f"{proc.returncode}): " + " | ".join(lines))
-    if proc.returncode or not lines or not lines[-1].startswith(
-            "device engine agrees: True (engine: torch:cuda"):
-        fail(f"[baseline] the quickstart twin failed: {proc.stderr[-2000:]}")
-    out["quickstart_s"] = wall
     return out
 
 
@@ -2751,7 +2752,12 @@ def lm_phase(header: str) -> dict:
             faults[name] > LM_ATOL for name in LM_FAULTS):
         fail(f"[lm serve] LM_ATOL does not tell the planted faults from the "
              f"unfaulted step: {faults}")
-    del params, runs, gen, ref_last, ref_next, ref32
+    forced = gen.tokens[:, :LM_SHARD_STEPS]
+    last, steps_ = one_rank_serve_check("[lm serve]", params, prompts, forced,
+                                        cfg, out)
+    save_shard_ref("granite", prompts=prompts, forced=forced, last=last,
+                   steps=steps_)
+    del params, runs, gen, ref_last, ref_next, ref32, last, steps_
     torch.cuda.empty_cache()
 
     reduced_vs_cpu(("granite-3-8b", "gemma3-27b"), "[lm serve]", out)
@@ -2812,6 +2818,122 @@ def to_card(tree):
 def params_bytes(params) -> int:
     from repro_torch.optim import tree_leaves
     return sum(w.numel() * w.element_size() for w in tree_leaves(params))
+
+
+# The transformer's sharding on the card (A13e-2).  [lm serve], [moe
+# serve] and [train] check their params on a 1-rank NCCL mesh against the
+# unsharded run (equal to the bit: a 1-rank mesh's collectives are the
+# identity, and the sharded code runs the same arithmetic) and
+# save the unsharded run that [shard]'s two gloo ranks are held to:
+# granite-3-8b at full width and depth on (1, 2) (tensor parallelism, 8
+# kv heads over 2), deepseek-moe-16b at full width cut to 8 of its 28
+# layers on (1, 2) (expert parallelism, 32 experts a rank; in f32 with
+# TF32 off, since routing is discontinuous and a bf16 rounding of another
+# summation order flips expert choices), and the granite-3-8b train step
+# at full width cut to 2 layers, seq 4,096, B = 2 on (2, 1) (FSDP and
+# data parallelism).  Each rank draws the unsharded draw's leaves in its
+# order and keeps its block of each, one leaf at a time.
+LM_SHARD_STEPS = 2            # decode steps teacher-forced on (1, 2)
+MOE_SHARD_LAYERS = 8
+TRAIN_SHARD_LAYERS, TRAIN_SHARD_BATCH = 2, 2
+SHARD_LM_DIR = ROOT / "build" / "shard_lm"
+# the 1-rank train check: the loss's log-sum-exp over the (whole) vocab
+# block does ATen's logsumexp arithmetic, so the loss and grads are
+# expected to the bit; the bound is for an equivalent formula
+ONE_RANK_REL = 1e-6
+
+
+def one_rank_mesh():
+    """The (1, 1) NCCL mesh of the card (its process group stays until
+    ``[shard]`` destroys it)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh((1, 1), device="cuda")
+
+
+def lm_forced(params, prompts, forced, cfg, ctx=None):
+    """(last-position prefill logits, (n, B, V) logits of ``n`` decode
+    steps fed ``forced``'s columns) on ``ctx``'s mesh, or unsharded."""
+    import torch
+    from repro_torch.models import transformer as tr
+    ctx = ctx or tr.ShardCtx()
+    B, S = prompts.shape
+    n = forced.shape[1]
+    with torch.inference_mode():
+        last, cache = tr.prefill(params, prompts, cfg, max_len=S + n,
+                                 ctx=ctx)
+        out = []
+        for t in range(n):
+            lengths = torch.full((B,), S + t, dtype=torch.int64,
+                                 device=prompts.device)
+            logits, cache = tr.decode_step(params, cache, forced[:, t:t + 1],
+                                           lengths, cfg, ctx)
+            out.append(logits)
+    return last, torch.stack(out)
+
+
+def greedy_tokens(params, prompts, cfg, n: int):
+    """(B, n) greedy tokens: the prefill's argmax, then each decode
+    step's."""
+    import torch
+    from repro_torch.models import transformer as tr
+    B, S = prompts.shape
+    with torch.inference_mode():
+        last, cache = tr.prefill(params, prompts, cfg, max_len=S + n)
+        toks = [torch.argmax(last, -1)[:, None]]
+        for t in range(n - 1):
+            lengths = torch.full((B,), S + t, dtype=torch.int64,
+                                 device=prompts.device)
+            logits, cache = tr.decode_step(params, cache, toks[-1], lengths,
+                                           cfg)
+            toks.append(torch.argmax(logits, -1)[:, None])
+    return torch.cat(toks, 1)
+
+
+def cut_layers(params, n: int):
+    """The params of the first ``n`` layers of each group (views)."""
+    return {**params, "groups": {k: {name: w[:n] for name, w in g.items()}
+                                 for k, g in params["groups"].items()}}
+
+
+def one_rank_serve_check(tag, params, prompts, forced, cfg, out) -> tuple:
+    """Prefill and :data:`LM_SHARD_STEPS` teacher-forced decode steps of
+    ``params`` on the 1-rank NCCL mesh (``launch.steps.lm_ctx``: the
+    sharded code path, the masked vocab gathers and the experts' local
+    range in, its collectives the identity) against the same unsharded;
+    equal to the bit.  Returns the unsharded
+    (last, steps) logits."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.sharding import spmd
+    mesh = one_rank_mesh()
+    ctx = steps.lm_ctx(mesh, cfg)
+    local = spmd.shard_tree(params, ctx.param_specs, mesh)
+    t0 = time.perf_counter()
+    want = lm_forced(params, prompts, forced, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = lm_forced(local, prompts, forced, cfg, ctx)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    out["one_rank_mesh"] = dict(bitwise_equal=equal, unsharded_s=t1 - t0,
+                                sharded_s=t2 - t1)
+    log(f"{tag} {cfg.name} ({cfg.n_layers} layers) on the 1-rank NCCL mesh "
+        f"(its collectives the identity): prefill and {forced.shape[1]} "
+        f"teacher-forced decode steps equal to the unsharded run to the "
+        f"bit: {equal}; {t2 - t1:.3f} s sharded, {t1 - t0:.3f} s unsharded")
+    if not equal:
+        fail(f"{tag} the 1-rank mesh's logits differ from the unsharded run")
+    return want
+
+
+def save_shard_ref(name: str, **arrays) -> None:
+    import numpy as np
+    SHARD_LM_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(SHARD_LM_DIR / f"{name}.npz", **{
+        k: (v.detach().float().cpu().numpy() if v.is_floating_point()
+            else v.cpu().numpy()) if hasattr(v, "detach") else np.asarray(v)
+        for k, v in arrays.items()})
 
 
 # [moe serve]: deepseek-moe-16b at its published widths and depth (28
@@ -3015,7 +3137,22 @@ def moe_phase(header: str) -> dict:
     if not all(faults[name] > LM_ATOL for name in MOE_FAULTS):
         fail(f"[moe serve] LM_ATOL does not tell the planted routing faults "
              f"from the unfaulted step: {faults}")
-    del params, runs, gen, ref_last, ref32
+    one_rank_serve_check("[moe serve]", params, prompts,
+                         gen.tokens[:, :LM_SHARD_STEPS], cfg, out)
+    # [shard]'s expert-parallel run is held to the first 8 layers, f32
+    cut_cfg = dataclasses.replace(cfg, n_layers=MOE_SHARD_LAYERS,
+                                  dtype=torch.float32)
+    cut = cut_layers(params, MOE_SHARD_LAYERS)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        forced = greedy_tokens(cut, prompts, cut_cfg, LM_SHARD_STEPS)
+        last, steps_ = lm_forced(cut, prompts, forced, cut_cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    save_shard_ref("moe", prompts=prompts, forced=forced, last=last,
+                   steps=steps_)
+    del params, runs, gen, ref_last, ref32, cut, last, steps_
     torch.cuda.empty_cache()
     reduced_vs_cpu((MOE_ARCH, "dbrx-132b"), "[moe serve]", out)
     return out
@@ -3043,13 +3180,11 @@ TRAIN_SMALL_STEPS = 5
 TRAIN_TWIN_STEPS = 100
 
 
-def run_modules(jobs, timeout=600):
+def start_modules(jobs) -> list:
     """Each ``(module, argv, expect_rc)`` of ``jobs`` as ``python -m MODULE
     ARGV`` (or a script path) in a fresh process (:func:`child_env`), all
-    started at once and reaped in order; fails unless each exits as
-    expected (0, or non-zero for ``expect_rc=1``), and kills any process
-    still running when it leaves.  Returns (stdout, stderr, wall s) a
-    job, the wall until the job is reaped."""
+    started at once; :func:`reap_modules` collects them and
+    :func:`kill_modules` stops what is left."""
     procs = []
     try:
         for module, argv, _ in jobs:
@@ -3059,59 +3194,107 @@ def run_modules(jobs, timeout=600):
             procs.append((cmd, time.perf_counter(), subprocess.Popen(
                 cmd, cwd=ROOT, env=child_env(), stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)))
-        outs = []
-        for (cmd, t0, proc), (module, _, expect_rc) in zip(procs, jobs):
-            stdout, stderr = proc.communicate(timeout=timeout)
-            wall = time.perf_counter() - t0
-            log(f"[train] {' '.join(cmd[1:])} ({wall:.1f} s, exit "
-                f"{proc.returncode}): "
-                + " | ".join(stdout.strip().splitlines()))
-            if (proc.returncode != 0) != (expect_rc != 0):
-                fail(f"{module} exited {proc.returncode}: {stderr[-2000:]}")
-            outs.append((stdout, stderr, wall))
-        return outs
-    finally:
-        for _, _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+    except BaseException:
+        kill_modules(procs)
+        raise
+    return procs
 
 
-def train_launcher_checks(out: dict) -> None:
-    """The launcher and the example twin in fresh processes, four at once
-    on the card: the reduced granite-3-8b run uninterrupted, the same run
-    crashed at ``--fail-at`` with ``--ckpt-every`` (then resumed, its
-    final params equal to the uninterrupted run's bit for bit), the
-    reduced deepseek-moe-16b (the MoE backward), and
-    ``examples/train_lm_torch.py``, its final loss below its first."""
-    import numpy as np
+def reap_modules(procs, jobs, timeout=600) -> list:
+    """The started ``jobs`` reaped in order; fails unless each exits as
+    expected (0, or non-zero for ``expect_rc=1``).  Returns (stdout,
+    stderr, wall s) a job, the wall from its start until it is reaped."""
+    outs = []
+    for (cmd, t0, proc), (module, _, expect_rc) in zip(procs, jobs):
+        stdout, stderr = proc.communicate(timeout=timeout)
+        wall = time.perf_counter() - t0
+        log(f"[train] {' '.join(cmd[1:])} ({wall:.1f} s, exit "
+            f"{proc.returncode}): " + " | ".join(stdout.strip().splitlines()))
+        if (proc.returncode != 0) != (expect_rc != 0):
+            fail(f"{module} exited {proc.returncode}: {stderr[-2000:]}")
+        outs.append((stdout, stderr, wall))
+    return outs
+
+
+def kill_modules(procs) -> None:
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+TRAIN_CLI_DIR = ROOT / "build" / "smoke_train"
+
+
+def train_cli(ckpt: str, *extra) -> tuple:
+    """The reduced granite-3-8b launcher job, checkpointing into ``ckpt``
+    under :data:`TRAIN_CLI_DIR`."""
+    return ("repro_torch.launch.train",
+            ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_STEPS),
+             "--ckpt-dir", str(TRAIN_CLI_DIR / ckpt), *extra])
+
+
+def train_crash_start():
+    """Starts the launcher run crashed at ``--fail-at`` with
+    ``--ckpt-every`` in a fresh process; it runs while ``[lm serve]`` and
+    ``[moe serve]`` do, so that ``[train]`` resumes it beside its other
+    fresh processes.  Returns (processes, jobs)."""
     import shutil
-    from repro_torch.checkpoint import restore_checkpoint
-    base = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_STEPS)]
-    root = ROOT / "build" / "smoke_train"
-    shutil.rmtree(root, ignore_errors=True)
-    a, b = str(root / "whole"), str(root / "crashed")
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     every = ["--ckpt-every", str(TRAIN_CKPT_EVERY)]
-    train = "repro_torch.launch.train"
-    whole, crash, moe_run, twin = run_modules([
-        (train, base + ["--ckpt-dir", a], 0),
-        (train, base + ["--ckpt-dir", b, *every,
-                        "--fail-at", str(TRAIN_FAIL_AT)], 1),
-        (train, ["--arch", MOE_ARCH, "--steps", "3"], 0),
-        (str(ROOT / "examples" / "train_lm_torch.py"),
-         ["--steps", str(TRAIN_TWIN_STEPS)], 0)])
+    jobs = [(*train_cli("crashed", *every, "--fail-at", str(TRAIN_FAIL_AT)),
+             1)]
+    return start_modules(jobs), jobs
+
+
+def train_launcher_start(crashed, out: dict):
+    """Reaps the crashed run (:func:`train_crash_start`), then starts the
+    launcher and the example twins in fresh processes, five at once on
+    the card (:func:`train_launcher_checks` reaps them): the reduced
+    granite-3-8b run uninterrupted, the crashed run resumed, the reduced
+    deepseek-moe-16b (the MoE backward), ``examples/train_lm_torch.py``
+    and ``[baseline]``'s ``examples/quickstart_torch.py``.  Returns
+    (processes, jobs)."""
+    (crash,) = reap_modules(*crashed)
+    out["crash_wall_s"] = crash[2]
     if f"injected failure at step {TRAIN_FAIL_AT}" not in crash[1]:
         fail(f"[train] the crashed run did not fail as planted: "
              f"{crash[1][-500:]}")
-    (resume,) = run_modules([(train, base + ["--ckpt-dir", b, *every], 0)])
-    want, got = restore_checkpoint(a), restore_checkpoint(b)
+    jobs = [(*train_cli("whole"), 0),
+            (*train_cli("crashed", "--ckpt-every", str(TRAIN_CKPT_EVERY)), 0),
+            ("repro_torch.launch.train", ["--arch", MOE_ARCH, "--steps", "3"],
+             0),
+            (str(ROOT / "examples" / "train_lm_torch.py"),
+             ["--steps", str(TRAIN_TWIN_STEPS)], 0),
+            (str(ROOT / "examples" / "quickstart_torch.py"), [], 0)]
+    return start_modules(jobs), jobs
+
+
+def train_launcher_checks(out: dict, started) -> None:
+    """Reaps :func:`train_launcher_start`'s processes: the crashed run
+    resumed (its final params equal to the uninterrupted run's bit for
+    bit), the MoE run done, the train twin's final loss below its first,
+    the quickstart twin's device engine equal to the host's."""
+    import numpy as np
+    from repro_torch.checkpoint import restore_checkpoint
+    whole, resume, moe_run, twin, quick = reap_modules(*started)
+    lines = quick[0].strip().splitlines()
+    log(f"[baseline] examples/quickstart_torch.py (in [train]'s batch, "
+        f"{quick[2]:.1f} s): " + " | ".join(lines))
+    if not lines or not lines[-1].startswith(
+            "device engine agrees: True (engine: torch:cuda"):
+        fail(f"[baseline] the quickstart twin failed: {quick[1][-2000:]}")
+    out["quickstart_s"] = quick[2]
+    want = restore_checkpoint(str(TRAIN_CLI_DIR / "whole"))
+    got = restore_checkpoint(str(TRAIN_CLI_DIR / "crashed"))
     equal = (want["step"] == got["step"] == TRAIN_CLI_STEPS
              and set(want["tree"]) == set(got["tree"])
              and all(np.array_equal(got["tree"][k], v)
                      for k, v in want["tree"].items()))
     moe_line = moe_run[0].strip().splitlines()[-1:] or [""]
     out["launcher"] = dict(
-        wall_s={"whole": whole[2], "crash": crash[2], "resume": resume[2],
+        wall_s={"whole": whole[2], "crash": out.pop("crash_wall_s"),
+                "resume": resume[2],
                 MOE_ARCH: moe_run[2], "example": twin[2]},
         resume_bitwise_equal=equal, moe_stdout=moe_line[0])
     log(f"[train] crash at step {TRAIN_FAIL_AT} (checkpoints every "
@@ -3188,14 +3371,85 @@ def train_small_vs_cpu(out: dict) -> None:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def train_phase(header: str) -> dict:
+def train_one_rank_check(spec, cell, ts, params, batch, out) -> None:
+    """``grads_fn``'s loss and grads of the 8-layer step on the 1-rank
+    NCCL mesh (the sharded code path: the vocab-parallel cross-entropy,
+    the masked embedding; its collectives the identity) against the
+    unsharded cell's on the same params and batch."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.optim import tree_leaves
+    from repro_torch.sharding import spmd
+    mesh = one_rank_mesh()
+    sharded = steps.lm_train_cell(spec, cell, mesh, microbatches=TRAIN_MICRO)
+    t0 = time.perf_counter()
+    loss_u, g_u = ts.grads_fn(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    local = spmd.shard_tree(params, sharded.in_specs[0], mesh)
+    lb = spmd.shard_tree({k: torch.as_tensor(v, device="cuda")
+                          for k, v in batch.items()}, sharded.in_specs[2],
+                         mesh)
+    loss_s, g_s = sharded.grads_fn(local, lb)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pairs = list(zip(tree_leaves(g_s), tree_leaves(g_u)))
+    bitwise = torch.equal(loss_s, loss_u) and all(torch.equal(a, b)
+                                                  for a, b in pairs)
+    rel_loss = abs(float(loss_s) / float(loss_u) - 1)
+    rel_grad = max(max_rel(a, b) for a, b in pairs)
+    out["one_rank_mesh"] = dict(bitwise_equal=bitwise, rel_loss=rel_loss,
+                                max_rel_grad=rel_grad, unsharded_s=t1 - t0,
+                                sharded_s=t2 - t1)
+    log(f"[train] {TRAIN_ARCH} {TRAIN_LAYERS} layers, batch {ts.batch} in "
+        f"{TRAIN_MICRO} microbatches on the 1-rank NCCL mesh: grads_fn's "
+        f"loss and {len(pairs)} grad leaves equal to the unsharded cell's to "
+        f"the bit: {bitwise} (loss rel {rel_loss:.2e}, largest grad gap "
+        f"{rel_grad:.2e} of its leaf's largest magnitude; bound "
+        f"{ONE_RANK_REL}: the vocab-parallel log-sum-exp is ATen's "
+        f"arithmetic, so equal bits are expected); {t2 - t1:.2f} s sharded, "
+        f"{t1 - t0:.2f} s unsharded")
+    if not (rel_loss <= ONE_RANK_REL and rel_grad <= ONE_RANK_REL):
+        fail("[train] the 1-rank mesh's loss or grads differ from the "
+             "unsharded step")
+
+
+def train_shard_reference(spec, cell, params) -> None:
+    """The unsharded step of the first :data:`TRAIN_SHARD_LAYERS` layers
+    of ``params`` at seq 4,096 and B = :data:`TRAIN_SHARD_BATCH`, one
+    microbatch: the loss and grad norm that ``[shard]``'s FSDP ranks are
+    held to, saved with its batch."""
+    import dataclasses
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init, tree_leaves, tree_unflatten
+    spec2 = dataclasses.replace(spec, full=dataclasses.replace(
+        spec.full, n_layers=TRAIN_SHARD_LAYERS))
+    cell2 = dataclasses.replace(cell, dims=dict(
+        cell.dims, global_batch=TRAIN_SHARD_BATCH))
+    ts2 = steps.lm_train_cell(spec2, cell2, microbatches=1)
+    cut = cut_layers(params, TRAIN_SHARD_LAYERS)
+    cut = tree_unflatten(cut, [w.detach().clone() for w in tree_leaves(cut)])
+    batch = LMDataPipeline(vocab=ts2.cfg.vocab, batch=ts2.batch,
+                           seq_len=ts2.seq_len).next_batch()
+    _, _, m = ts2.step_fn(cut, adamw_init(cut), batch)
+    save_shard_ref("train", loss=m["loss"], grad_norm=m["grad_norm"],
+                   **batch)
+
+
+def train_phase(header: str, crashed) -> dict:
     """``[train]``: granite-3-8b at its published widths, 8 layers, 3 steps
     at seq 4,096 through ``TrainLoop`` and ``launch.steps``: step time,
     tokens/s, peak memory and the busy share of one profiled step; loss,
     grad norm and lr finite, step 0's bf16 loss and grad norm within
-    :data:`TRAIN_REL` of an f32 pass; then the launcher's runs, crash and
-    resume and the example twin (:func:`train_launcher_checks`), after
-    the reduced configs against the CPU (:func:`train_small_vs_cpu`)."""
+    :data:`TRAIN_REL` of an f32 pass, and the 2-layer step that
+    ``[shard]`` is held to (:func:`train_shard_reference`); then the
+    launcher's runs, resume of the crashed run (``crashed``:
+    :func:`train_crash_start`) and the example twins
+    (:func:`train_launcher_checks`), in fresh processes started before the
+    card checks the trained params' loss and grads on the 1-rank NCCL
+    mesh (:func:`train_one_rank_check`) and the reduced configs against
+    the CPU (:func:`train_small_vs_cpu`)."""
     import dataclasses
     import math
     import torch
@@ -3242,6 +3496,8 @@ def train_phase(header: str) -> dict:
         del g32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    train_shard_reference(spec, cell, params)
+    torch.cuda.empty_cache()
     metrics, times = [], []
 
     def timed_step(p, o, batch):
@@ -3288,10 +3544,18 @@ def train_phase(header: str) -> dict:
         fail("[train] a loss, grad norm or lr is not finite")
     if not all(rel[k] <= TRAIN_REL[k] for k in TRAIN_REL):
         fail(f"[train] step 0 in bf16 departs from the f32 pass: {rel}")
-    del loop, params, opt
-    torch.cuda.empty_cache()
-    train_small_vs_cpu(out)
-    train_launcher_checks(out)
+    # the fresh processes run while the card checks the 1-rank mesh (on the
+    # trained params) and the reduced configs
+    started = train_launcher_start(crashed, out)
+    try:
+        train_one_rank_check(spec, cell, ts, loop.params, pipe.next_batch(),
+                             out)
+        del loop, params, opt
+        torch.cuda.empty_cache()
+        train_small_vs_cpu(out)
+        train_launcher_checks(out, started)
+    finally:
+        kill_modules(started[0])
     return out
 
 
@@ -3891,10 +4155,163 @@ def kernel_device_ms(fn) -> tuple:
     return out, us / 1e3
 
 
+def draw_blocks(cfg, kept_cfg, mesh, seed: int, prompts=None):
+    """This rank's blocks of ``kept_cfg``'s params (the first
+    ``kept_cfg.n_layers`` layers of ``cfg``'s draw) by their storage
+    specs on ``mesh``, drawn as the unsharded run draws them (a card
+    generator seeded ``seed``, every leaf whole, in order) and kept one
+    leaf at a time; then ``prompts`` (a shape) ids from the same
+    generator.  The ranks draw in turn, so one whole leaf is held at a
+    time on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import spmd
+    specs = steps.lm_ctx(mesh, kept_cfg).param_specs
+    n = kept_cfg.n_layers
+
+    def keep(path, x):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        if path[0] == "groups":
+            x = x[:n]
+        return spmd.shard(x, spec, mesh).clone()
+
+    params = ids = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            params = tr.init_params(gen, cfg, "cuda", keep=keep)
+            if prompts is not None:
+                ids = torch.randint(0, cfg.vocab, prompts, generator=gen,
+                                    device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params, ids
+
+
+def shard_serve_rank(name, cfg, kept_cfg, mesh, results) -> None:
+    """Prefill and the teacher-forced decode steps of ``[lm serve]`` /
+    ``[moe serve]``'s saved run on this rank's blocks; the logits are
+    gathered from the vocab blocks and saved."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.sharding import P, spmd
+    ref = np.load(SHARD_LM_DIR / f"{name}.npz")
+    t0 = time.perf_counter()
+    params, prompts = draw_blocks(cfg, kept_cfg, mesh, 0,
+                                  tuple(ref["prompts"].shape))
+    draw_s = time.perf_counter() - t0
+    forced = torch.from_numpy(ref["forced"]).cuda()
+    ctx = steps.lm_ctx(mesh, kept_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, logits = lm_forced(params, prompts, forced, kept_cfg, ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    results.update({
+        f"{name}_last": spmd.unshard(last, P(None, "model"), mesh).cpu(),
+        f"{name}_steps": spmd.unshard(logits, P(None, None, "model"),
+                                      mesh).cpu(),
+        f"{name}_prompts_equal": np.array_equal(prompts.cpu().numpy(),
+                                                ref["prompts"]),
+        f"{name}_wall": wall, f"{name}_draw_s": draw_s,
+        f"{name}_bytes": params_bytes(params)})
+    del params
+    torch.cuda.empty_cache()
+
+
+def replicated_equal(trees, specs, axis: str) -> bool:
+    """Every leaf of ``trees`` whose spec does not split it over ``axis``
+    bitwise equal on every rank: the SHA-256 digests of their bytes
+    (copied to the host) compared across the ranks."""
+    import torch.distributed as dist
+    from repro_torch.optim import tree_leaves
+    from repro_torch.sharding import spmd
+    digest = hashlib.sha256()
+    for tree in trees:
+        for x, s in zip(tree_leaves(tree), spmd.spec_leaves(specs)):
+            if not any(axis in spmd.part_axes(part) for part in s):
+                digest.update(x.detach().contiguous().cpu().numpy()
+                              .tobytes())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, digest.hexdigest())
+    return len(set(every)) == 1
+
+
+def shard_lm_rank(rank: int, world: int, out_dir: str) -> None:
+    """The transformer's cases on ``world`` ranks of the card: tensor
+    parallelism (granite-3-8b) and expert parallelism (deepseek-moe-16b,
+    8 layers, f32) on (1, world), FSDP and data parallelism (the 2-layer
+    granite-3-8b train step) on (world, 1); results saved."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import spmd
+    results = {}
+    t_lm = time.perf_counter()
+    tp = make_local_mesh((1, world), device="cuda")
+    cfg = configs.get(LM_ARCH).full
+    shard_serve_rank("granite", cfg, cfg, tp, results)
+    full = configs.get(MOE_ARCH).full
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        shard_serve_rank("moe", full, dataclasses.replace(
+            full, n_layers=MOE_SHARD_LAYERS, dtype=torch.float32), tp,
+            results)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    dp = make_local_mesh((world, 1), device="cuda")
+    ref = np.load(SHARD_LM_DIR / "train.npz")
+    spec = configs.get(TRAIN_ARCH)
+    spec2 = dataclasses.replace(spec, full=dataclasses.replace(
+        spec.full, n_layers=TRAIN_SHARD_LAYERS))
+    cell = spec.cells["train_4k"]
+    cell = dataclasses.replace(cell, dims=dict(
+        cell.dims, global_batch=TRAIN_SHARD_BATCH))
+    ts = steps.lm_train_cell(spec2, cell, dp, microbatches=1)
+    t0 = time.perf_counter()
+    params, _ = draw_blocks(dataclasses.replace(
+        spec.full, n_layers=TRAIN_LAYERS), ts.cfg, dp, 1)
+    results["train_draw_s"] = time.perf_counter() - t0
+    batch = spmd.shard_tree({k: torch.from_numpy(ref[k]).cuda()
+                             for k in ("tokens", "labels")}, ts.in_specs[2],
+                            dp)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, m = ts.step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    results.update(
+        train_wall=time.perf_counter() - t0, train_loss=float(m["loss"]),
+        train_grad_norm=float(m["grad_norm"]),
+        train_peak=torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    results["train_replicated_equal"] = replicated_equal(
+        (params, opt["mu"], opt["nu"]), ts.in_specs[0], "data")
+    results["train_check_s"] = time.perf_counter() - t0
+    results["lm_s"] = time.perf_counter() - t_lm
+    np.savez(Path(out_dir) / f"rank{rank}_lm.npz", **{
+        k: np.asarray(v) for k, v in results.items()})
+
+
 def shard_clique_rank(rank: int, world: int, store: str, out_dir: str,
                       seed: int) -> None:
     """One of :data:`SHARD_WORLD` spawned ranks on the card: ``ep_tri_1m``
-    on a (world, 1) mesh over gloo, its blocks and times saved."""
+    on a (world, 1) mesh over gloo, its blocks and times saved; then the
+    transformer's cases (:func:`shard_lm_rank`)."""
     import datetime
     import numpy as np
     import torch
@@ -3929,6 +4346,9 @@ def shard_clique_rank(rank: int, world: int, store: str, out_dir: str,
         np.savez(Path(out_dir) / f"rank{rank}.npz", total=total.cpu(),
                  nv=nv.cpu(), t=t.cpu(), f=f.cpu(), hard=hard.cpu(),
                  wall=wall, launches=launches)
+        del A_loc, c_loc, hard, total, nv, t, f
+        torch.cuda.empty_cache()
+        shard_lm_rank(rank, world, out_dir)
     finally:
         dist.destroy_process_group()
 
@@ -3973,6 +4393,80 @@ def shard_two_ranks(one_rank: dict, seed: int, tag: str) -> dict:
              "1-rank run")
     if abs(totals[0] - exact) > 2 ** -23 * exact * 4:
         fail(f"{tag} the {SHARD_WORLD}-rank f32 total is off its rounding")
+    out["lm"] = shard_lm_results(out_dir, tag)
+    return out
+
+
+def shard_lm_results(out_dir, tag: str) -> dict:
+    """The ranks' transformer cases against the unsharded runs saved by
+    ``[lm serve]``, ``[moe serve]`` and ``[train]``."""
+    import numpy as np
+    from repro_torch import configs
+    ranks = [dict(np.load(Path(out_dir) / f"rank{r}_lm.npz"))
+             for r in range(SHARD_WORLD)]
+    r0 = ranks[0]
+    out = {}
+    lm, moe = configs.get(LM_ARCH).full, configs.get(MOE_ARCH).full
+    for name, arch, what in (
+            ("granite", LM_ARCH, f"full width and depth, (1, {SHARD_WORLD}):"
+             f" tensor parallelism, {lm.n_kv_heads} kv heads over "
+             f"{SHARD_WORLD}, bf16"),
+            ("moe", MOE_ARCH, f"full width, {MOE_SHARD_LAYERS} of "
+             f"{moe.n_layers} layers, (1, {SHARD_WORLD}): expert parallelism,"
+             f" {moe.moe.n_experts // SHARD_WORLD} experts a rank, f32 (TF32 "
+             f"off)")):
+        ref = np.load(SHARD_LM_DIR / f"{name}.npz")
+        errs = dict(prefill=float(np.abs(r0[f"{name}_last"]
+                                         - ref["last"]).max()),
+                    decode=float(np.abs(r0[f"{name}_steps"]
+                                        - ref["steps"]).max()))
+        prompts = all(bool(r[f"{name}_prompts_equal"]) for r in ranks)
+        out[name] = dict(errs=errs, prompts_equal=prompts,
+                         wall_s=[float(r[f"{name}_wall"]) for r in ranks],
+                         draw_s=[float(r[f"{name}_draw_s"]) for r in ranks],
+                         bytes_a_rank=[int(r[f"{name}_bytes"])
+                                       for r in ranks],
+                         max_abs_logit=float(np.abs(ref["last"]).max()))
+        log(f"{tag} {arch} {what} on {SHARD_WORLD} gloo ranks of the card: "
+            f"|prefill - unsharded| {errs['prefill']:.5f}, |{LM_SHARD_STEPS} "
+            f"teacher-forced decode steps - unsharded| {errs['decode']:.5f} "
+            f"(atol {LM_ATOL}; max |logit| {out[name]['max_abs_logit']:.3f});"
+            f" prompts drawn equal: {prompts}; "
+            + ", ".join(f"{b / 2**30:.2f}" for b in out[name]["bytes_a_rank"])
+            + " GiB of params a rank; prefill + decode "
+            + ", ".join(f"{w:.2f}" for w in out[name]["wall_s"]) + " s, draw "
+            + ", ".join(f"{w:.2f}" for w in out[name]["draw_s"]) + " s")
+        if not prompts or max(errs.values()) > LM_ATOL:
+            fail(f"{tag} the sharded {arch} run departs from the unsharded")
+    ref = np.load(SHARD_LM_DIR / "train.npz")
+    rel = {k: abs(float(r0[f"train_{k}"]) / float(ref[k]) - 1)
+           for k in TRAIN_REL}
+    same = len({float(r["train_loss"]) for r in ranks}) == 1
+    rep_equal = all(bool(r["train_replicated_equal"]) for r in ranks)
+    out["train"] = dict(rel=rel, loss=float(r0["train_loss"]),
+                        grad_norm=float(r0["train_grad_norm"]),
+                        want=dict(loss=float(ref["loss"]),
+                                  grad_norm=float(ref["grad_norm"])),
+                        replicated_equal=rep_equal, losses_equal=same,
+                        wall_s=[float(r["train_wall"]) for r in ranks],
+                        peak_bytes=[int(r["train_peak"]) for r in ranks])
+    log(f"{tag} {TRAIN_ARCH} train step, full width, {TRAIN_SHARD_LAYERS} "
+        f"layers, seq 4096, B={TRAIN_SHARD_BATCH}, ({SHARD_WORLD}, 1): FSDP and"
+        f" data parallelism on {SHARD_WORLD} gloo ranks of the card: loss "
+        f"{out['train']['loss']:.5f} grad norm "
+        f"{out['train']['grad_norm']:.5f} against the unsharded "
+        f"{out['train']['want']['loss']:.5f} / "
+        f"{out['train']['want']['grad_norm']:.5f} (rel {rel['loss']:.2e}, "
+        f"{rel['grad_norm']:.2e}; bounds {TRAIN_REL}); replicated params and "
+        f"moments bitwise equal across the ranks: {rep_equal}; step "
+        + ", ".join(f"{w:.2f}" for w in out["train"]["wall_s"]) + " s, peak "
+        + ", ".join(f"{b / 2**30:.2f}" for b in out["train"]["peak_bytes"])
+        + f" GiB, draw {float(r0['train_draw_s']):.2f} s, replicated check "
+        f"{float(r0['train_check_s']):.2f} s; the ranks' transformer cases "
+        f"{float(r0['lm_s']):.1f} s in all")
+    if not (same and rep_equal and all(rel[k] <= TRAIN_REL[k]
+                                       for k in TRAIN_REL)):
+        fail(f"{tag} the sharded train step departs from the unsharded one")
     return out
 
 
@@ -4647,13 +5141,19 @@ def main(argv=None) -> int:
     log(f"[time] [baseline] done at {time.perf_counter() - t_start:.1f} s")
     truss_runs = truss_phase(lg)
     log(f"[time] [truss] done at {time.perf_counter() - t_start:.1f} s")
-    lm_runs = lm_phase(header)
-    log(f"[time] [lm serve] done at {time.perf_counter() - t_start:.1f} s")
-    moe_runs = moe_phase(header)
-    log(f"[time] [moe serve] done at {time.perf_counter() - t_start:.1f} s")
-    # the GNN runs' host draws go to a background thread from here on
-    gnn_built = gnn_prefetch()
-    train_runs = train_phase(header)
+    # [train]'s crashed launcher run goes to a fresh process from here on
+    crashed = train_crash_start()
+    try:
+        lm_runs = lm_phase(header)
+        log(f"[time] [lm serve] done at {time.perf_counter() - t_start:.1f} s")
+        moe_runs = moe_phase(header)
+        log(f"[time] [moe serve] done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        # the GNN runs' host draws go to a background thread from here on
+        gnn_built = gnn_prefetch()
+        train_runs = train_phase(header, crashed)
+    finally:
+        kill_modules(crashed[0])
     log(f"[time] [train] done at {time.perf_counter() - t_start:.1f} s")
     gnn_runs = gnn_phase(header, gnn_built)
     log(f"[time] [gnn train] done at {time.perf_counter() - t_start:.1f} s")

@@ -33,7 +33,18 @@ it on its own blocks of the inputs (``sharding.spmd.shard_tree`` by
   AdamW, so every rank's params stay equal.
 * recsys: table rows over ``model``, the batch over the data axes,
   candidates over ``model``; grads summed over the data axes.
-* LM cells on a mesh raise ``NotImplementedError`` (ROADMAP A13e-2).
+* LM: the params stored by ``transformer_param_specs`` (FSDP over
+  ``data``, Megatron tensor parallelism and the experts over ``model``),
+  the batch over the data axes, the KV cache by the reference's cache
+  specs (the GQA fallback splits its length over ``model``; a decode of
+  one sequence, ``long_500k``, splits it over the data axes); the model
+  calls the collectives through its :class:`~repro_torch.models.
+  transformer.ShardCtx`.  The train step's microbatch m is the global
+  batch's rows ``m B / M .. (m + 1) B / M - 1``, each data rank holding
+  its slice of it, its loss the mean over that microbatch's unmasked
+  tokens; grads are then summed over the axes a param is replicated on
+  where each rank holds a part (``_lm_grad_axes``), the norm taken over
+  the blocks.
 """
 from __future__ import annotations
 
@@ -52,7 +63,9 @@ from ..models import transformer as tr
 from ..optim import (AdamWConfig, adamw_init, adamw_update, cosine_schedule,
                      tree_leaves, tree_unflatten)
 from ..sharding import spmd
-from ..sharding.rules import P, tree_specs
+from ..sharding.rules import (P, transformer_cache_specs,
+                              transformer_layer_specs,
+                              transformer_param_specs, tree_specs)
 
 
 @dataclasses.dataclass
@@ -118,38 +131,104 @@ def _on(x, device):
     return torch.as_tensor(np.asarray(x), device=device)
 
 
-def _no_mesh_lm(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name} on a mesh (model axis {_model_size(mesh)}) needs the "
-            "transformer's sharding (ShardCtx, tensor parallelism, the "
-            "expert-parallel MoE): ROADMAP A13e-2")
-
-
 # ---------------------------------------------------------------------------
 # LM cells
 # ---------------------------------------------------------------------------
 
+def lm_ctx(mesh, cfg, cache_len_axes=()) -> tr.ShardCtx:
+    """The transformer's :class:`ShardCtx` on ``mesh`` (the reference's
+    ``_lm_ctx``): the data axes it has, the layer and param specs for its
+    model size, filtered to it, and the axes the KV cache's length is
+    split over."""
+    if mesh is None:
+        return tr.ShardCtx()
+    m = _model_size(mesh)
+    return tr.ShardCtx(
+        mesh=mesh, data_axes=spmd.present(DATA_AXES, mesh),
+        model_axis="model",
+        layer_specs=tree_specs(mesh, transformer_layer_specs(cfg, m)),
+        param_specs=tree_specs(mesh, transformer_param_specs(
+            cfg, model_size=m)),
+        cache_len_axes=spmd.present(cache_len_axes, mesh))
+
+
+def _lm_grad_axes(ctx: tr.ShardCtx) -> Dict[str, Tuple[str, ...]]:
+    """For each param leaf (``tree_leaves`` order, by path), the mesh
+    axes its grad is summed over after the backward pass:
+
+    * the data axes its storage spec lacks (``embed`` and ``head``
+      everywhere; ``pod`` for the FSDP leaves, whose gather's backward
+      sums over ``data`` alone);
+    * ``model`` for the replicated params whose grads each model rank
+      holds in part: the router (each rank's experts) and, under sharded
+      q heads, replicated kv weights (each rank's q heads)."""
+    out = {}
+    partial = {"router"}
+    if ctx.layer_specs["wq"][1] is not None \
+            and ctx.layer_specs["wk"][1] is None:
+        partial |= {"wk", "wv"}
+    model = spmd.present(("model",), ctx.mesh)
+
+    def visit(path, spec):
+        have = {a for part in spec for a in spmd.part_axes(part)}
+        axes = [a for a in ctx.data_axes if a not in have]
+        if path[-1] in partial and len(path) == 3:
+            axes += list(model)
+        out[path] = tuple(a for a in spmd.axis_names(ctx.mesh) if a in axes)
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk((*path, k), node[k])
+        else:
+            visit(path, node)
+    walk((), ctx.param_specs)
+    return out
+
+
+def _microbatches(B: int, M: int, mesh) -> int:
+    """M, or on a mesh the largest divisor of it whose microbatch still
+    splits over the data axes."""
+    n = spmd.axis_size(mesh, DATA_AXES)
+    while M > 1 and (B % M or (B // M) % n):
+        M -= 1
+    return M
+
+
 def loss_and_grads(params, batch, cfg: tr.TransformerConfig,
-                   microbatches: int) -> Tuple[torch.Tensor, Dict]:
+                   microbatches: int, ctx: tr.ShardCtx = tr.ShardCtx()
+                   ) -> Tuple[torch.Tensor, Dict]:
     """Mean loss and grads over ``microbatches`` equal slices of
     ``batch`` (``tokens``/``labels``, numpy or tensors, (B, S)), the
     grads summed in f32 in microbatch order and divided by M, as the
     reference's scan does.  The batch goes to the params' device; the
-    param leaves are made to require grad."""
+    param leaves are made to require grad.
+
+    On a mesh (``ctx``) ``params`` and ``batch`` are this rank's blocks:
+    with M > 1 the batch is gathered over the data axes and the rank
+    takes its slice of each global microbatch; the loss is the global
+    one, and each grad is summed over :func:`_lm_grad_axes`."""
     leaves = tree_leaves(params)
     device = leaves[0].device
     for p in leaves:
         p.requires_grad_(True)
-    batch = {k: torch.as_tensor(np.asarray(v), device=device)
-             for k, v in batch.items()}
+    batch = {k: _on(v, device) for k, v in batch.items()}
     M = microbatches
+    data = spmd.present(ctx.data_axes, ctx.mesh)
+    if M > 1 and spmd.axis_size(ctx.mesh, data) > 1:
+        i, n = spmd.block_index(ctx.mesh, data)
+        whole = {k: spmd.unshard(v, P(data, None), ctx.mesh)
+                 for k, v in batch.items()}
+        b = whole["tokens"].shape[0] // M
+        r = b // n
+        batch = {k: v.reshape(M, b, -1)[:, i * r:(i + 1) * r].reshape(
+            M * r, -1) for k, v in whole.items()}
     b = batch["tokens"].shape[0] // M
     grads, loss_sum = None, torch.zeros((), device=device)
     for m in range(M):
         mb = {k: v[m * b:(m + 1) * b] for k, v in batch.items()}
         with torch.enable_grad():
-            loss = tr.loss_fn(params, mb, cfg)
+            loss = tr.loss_fn(params, mb, cfg, ctx)
             gs = torch.autograd.grad(loss, leaves)
         if grads is None:
             grads = [g.float() for g in gs]
@@ -160,6 +239,12 @@ def loss_and_grads(params, batch, cfg: tr.TransformerConfig,
         loss_sum = loss_sum + loss.detach()
     for g in grads:
         g.div_(M)
+    if ctx.mesh is not None:
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        for g, axes in zip(grads, _lm_grad_axes(ctx).values()):
+            by_axes.setdefault(axes, []).append(g)
+        for axes, gs in by_axes.items():
+            spmd.all_reduce_grads(gs, axes, ctx.mesh)
     return loss_sum / M, tree_unflatten(params, grads)
 
 
@@ -177,31 +262,33 @@ def lm_train_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
     """The gradient-accumulated train step of ``cell`` (a train shape of
     ``spec``).  ``reduced`` takes the arch's smoke config at B, S = 2,
     min(S, 64) and one microbatch, as the reference; M falls back to 1
-    when it does not divide B."""
-    _no_mesh_lm(mesh, "lm_train_cell")
+    when it does not divide B, and on a mesh to the largest divisor whose
+    microbatch splits over the data axes (the multi-pod mesh's 32 data
+    blocks take 256 rows in 8)."""
     cfg: tr.TransformerConfig = spec.reduced if reduced else spec.full
     B, S = cell.dims["global_batch"], cell.dims["seq_len"]
     if reduced:
         B, S = 2, min(S, 64)
         microbatches = 1
     M = microbatches if B % microbatches == 0 else 1
+    M = _microbatches(B, M, mesh)
     opt_cfg = AdamWConfig(lr=3e-4, schedule=cosine_schedule(100, 10000))
+    ctx = lm_ctx(mesh, cfg)
 
     def grads_fn(params, batch):
-        return loss_and_grads(params, batch, cfg, M)
-
-    def step(params, opt_state, batch):
-        loss, grads = grads_fn(params, batch)
-        params, opt_state, m = adamw_update(grads, opt_state, params,
-                                            opt_cfg)
-        return params, opt_state, {"loss": loss, **m}
+        return loss_and_grads(params, batch, cfg, M, ctx)
 
     params_abs = _lm_params_abs(cfg)
+    pspec = None if mesh is None else ctx.param_specs
     shapes = {"tokens": ((B, S), np.int32), "labels": ((B, S), np.int32)}
-    return Cell(step_fn=step,
+    bspec = {"tokens": P(DATA_AXES, None), "labels": P(DATA_AXES, None)}
+    mspec = {"loss": P(), "grad_norm": P(), "lr": P()}
+    return Cell(step_fn=_train_step(grads_fn, opt_cfg, pspec, mesh),
                 abstract_args=(params_abs, adamw_init(params_abs),
                                _abstract(shapes)),
-                in_specs=None, out_specs=None, meta=_lm_meta(cfg, B * S),
+                in_specs=_specs(mesh, (pspec, _opt_specs(pspec), bspec)),
+                out_specs=_specs(mesh, (pspec, _opt_specs(pspec), mspec)),
+                meta=_lm_meta(cfg, B * S),
                 cfg=cfg, init=_init_of(tr.init_params, cfg),
                 grads_fn=grads_fn, batch_shapes=shapes, batch=B, seq_len=S,
                 microbatches=M)
@@ -210,54 +297,79 @@ def lm_train_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
 def lm_prefill_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
                     reduced: bool = False) -> Cell:
     """The prefill of ``cell``'s (B, S) prompts into an S-long cache:
-    (last-position f32 logits, cache)."""
-    _no_mesh_lm(mesh, "lm_prefill_cell")
+    (last-position f32 logits, cache); on a mesh the logits' block
+    ``P(data, "model")`` and the cache's by ``transformer_cache_specs``."""
     cfg = spec.reduced if reduced else spec.full
     B, S = cell.dims["global_batch"], cell.dims["seq_len"]
     if reduced:
         B, S = 2, min(S, 64)
+    m = _model_size(mesh)
+    cspec = transformer_cache_specs(cfg, model_size=m)
+    ctx = lm_ctx(mesh, cfg, () if cfg.n_kv_heads % m == 0 else ("model",))
 
     @torch.no_grad()
     def step(params, tokens):
         return tr.prefill(params, _on(tokens, params["embed"].device), cfg,
-                          max_len=S)
+                          max_len=S, ctx=ctx)
 
     shapes = {"tokens": ((B, S), np.int32)}
+    pspec = None if mesh is None else ctx.param_specs
     return Cell(step_fn=step,
                 abstract_args=(_lm_params_abs(cfg),
                                _abstract(shapes)["tokens"]),
-                in_specs=None, out_specs=None, meta=_lm_meta(cfg, B * S),
-                cfg=cfg, init=_init_of(tr.init_params, cfg),
-                batch_shapes=shapes)
+                in_specs=_specs(mesh, (pspec, P(DATA_AXES, None))),
+                out_specs=_specs(mesh, (P(DATA_AXES, "model"), cspec)),
+                meta=_lm_meta(cfg, B * S), cfg=cfg,
+                init=_init_of(tr.init_params, cfg), batch_shapes=shapes)
 
 
 def lm_decode_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
                    reduced: bool = False) -> Cell:
     """One decode step of ``cell``'s B sequences against an S-long cache
     (updated in place): (f32 logits, cache).  ``B == 1`` is the
-    reference's ``long_ctx`` case, whose cache length it shards."""
-    _no_mesh_lm(mesh, "lm_decode_cell")
+    reference's ``long_ctx`` case, whose cache length it shards over the
+    data axes; otherwise the batch is, and the kv heads over ``model``
+    where they divide, else the cache length (the GQA fallback)."""
     cfg = spec.reduced if reduced else spec.full
     B, S = cell.dims["global_batch"], cell.dims["seq_len"]
     if reduced:
         B, S = 2, min(S, 64)
+    long_ctx = B == 1  # long_500k: shard the KV length, not the batch
+    kv_shardable = cfg.n_kv_heads % max(_model_size(mesh), 1) == 0
+    if long_ctx:
+        kv = P(None, None, DATA_AXES, "model" if kv_shardable else None,
+               None)
+        tspec, lspec, ologit = P(None, None), P(None), P(None, "model")
+        len_axes = DATA_AXES
+    else:
+        # GQA with kv < TP: shard the cache *length* over the model axis
+        # instead (a replicated 32k cache is 100+ GB a device)
+        kv = P(None, DATA_AXES, None, "model", None) if kv_shardable \
+            else P(None, DATA_AXES, "model", None, None)
+        tspec, lspec = P(DATA_AXES, None), P(DATA_AXES)
+        ologit = P(DATA_AXES, "model")
+        len_axes = () if kv_shardable else ("model",)
+    cspec = {kind: {"k": kv, "v": kv} for kind, _ in cfg.layer_groups}
+    ctx = lm_ctx(mesh, cfg, len_axes)
 
     @torch.no_grad()
     def step(params, cache, tokens, lengths):
         device = params["embed"].device
         return tr.decode_step(params, cache, _on(tokens, device),
-                              _on(lengths, device).long(), cfg)
+                              _on(lengths, device).long(), cfg, ctx)
 
     shapes = {"tokens": ((B, 1), np.int32), "lengths": ((B,), np.int32)}
     ab = _abstract(shapes)
     meta = {"tokens_per_step": B, "kv_cache_tokens": S,
             "model_params": cfg.num_params(),
             "active_params": cfg.active_params()}
+    pspec = None if mesh is None else ctx.param_specs
     return Cell(step_fn=step,
                 abstract_args=(_lm_params_abs(cfg),
                                tr.init_cache(cfg, B, S, "meta"),
                                ab["tokens"], ab["lengths"]),
-                in_specs=None, out_specs=None, meta=meta, cfg=cfg,
+                in_specs=_specs(mesh, (pspec, cspec, tspec, lspec)),
+                out_specs=_specs(mesh, (ologit, cspec)), meta=meta, cfg=cfg,
                 init=_init_of(tr.init_params, cfg), batch_shapes=shapes)
 
 
@@ -293,9 +405,10 @@ def _global_norm(grads, pspec, mesh) -> torch.Tensor:
     """The global norm of a tree of blocks: each leaf's sum of squares
     summed over the axes its spec shards it on (tree order, as
     ``global_norm``)."""
+    names = spmd.axis_names(mesh)
     sq = [spmd.psum(torch.sum(torch.square(g.float())),
-                    [a for part in s or () for a in spmd.part_axes(part)],
-                    mesh)
+                    sorted((a for part in s or () for a in
+                            spmd.part_axes(part)), key=names.index), mesh)
           for g, s in zip(tree_leaves(grads), spmd.spec_leaves(pspec))]
     return torch.sqrt(sum(sq))
 

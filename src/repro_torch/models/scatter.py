@@ -131,9 +131,10 @@ def edge_index(edges: torch.Tensor, num_nodes: int) -> EdgeIndex:
     """Index the (2, E) ``edges`` of a graph of ``num_nodes`` nodes.
 
     Raises ``ValueError`` for an id outside ``[0, num_nodes)``: the
-    reference would clamp such a gather, and no pipeline makes one."""
+    reference would clamp such a gather, and no pipeline makes one.
+    ``meta`` edges (the dry run's) hold no ids to check."""
     edges = edges.long()
-    if edges.numel() and (int(edges.min()) < 0
+    if edges.numel() and not edges.is_meta and (int(edges.min()) < 0
                           or int(edges.max()) >= num_nodes):
         raise ValueError(f"edge ids must lie in [0, {num_nodes})")
     dst, perm = torch.sort(edges[1], stable=True)

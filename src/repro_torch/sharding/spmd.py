@@ -14,22 +14,35 @@ order, so gathered blocks come back in place.
 * :func:`shard` / :func:`unshard` (and the ``_tree`` forms): a global
   tensor to this rank's block and back.
 * Collectives that gradients flow through, each a
-  ``torch.autograd.Function``: :func:`all_gather_rows` (reduce-scatter
-  backward), :func:`reduce_scatter_rows` (all-gather backward),
-  :func:`psum` (sum forward, identity backward: the consumer is
+  ``torch.autograd.Function``: :func:`all_gather_dim` /
+  :func:`all_gather_rows` (reduce-scatter backward: FSDP's gather of a
+  weight), :func:`reduce_scatter_rows` (all-gather backward),
+  :func:`copy_to` (identity forward, sum backward: Megatron's *f*, where
+  a replicated activation enters a column-parallel product), :func:`psum`
+  (sum forward, identity backward: Megatron's *g*; the consumer is
   replicated over the axes and its params' grads are not reduced over
   them) and :func:`psum_partials` (sum forward, sum backward: each rank's
   replicated consumer counts ``1 / n`` of the loss and every grad is
   summed over the axes afterwards).
-* :func:`all_reduce_grads`: sums grads in place over axes (no autograd).
+* :func:`pmax` (no grad) and :func:`all_reduce_grads` (sums grads in
+  place over axes, no autograd).
+* :func:`tally`: a context that counts every collective the functions
+  here issue, by kind, with the byte semantics of the reference's
+  ``roofline.collective_bytes`` (the dry run reads it).
 * :class:`Rows`: rows split in blocks over some axes, the hook the
   models take where the reference applies its sharding constraints.
+
+A collective over axes that span one block (absent from the mesh, or of
+one rank, as a 1-rank mesh's) is the identity and calls no backend, as
+GSPMD places none there: a (1, 2) mesh gathers nothing over its ``data``
+axis.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -180,21 +193,46 @@ def shard(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return x.contiguous()
 
 
+def _trivial(axes: Sequence[str], mesh) -> bool:
+    """Whether ``axes`` span one block (absent from ``mesh``, or of one
+    rank): a collective over them is the identity and calls no backend."""
+    return axis_size(mesh, axes) == 1
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _gather_dim(x: torch.Tensor, d: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     xt = x.movedim(d, 0).contiguous()
     out = torch.empty((n * xt.shape[0], *xt.shape[1:]), dtype=x.dtype,
                       device=x.device)
+    _record("all-gather", _nbytes(xt), _nbytes(out))
     all_gather_into(out, xt, group=group)
-    return out.movedim(0, d)
+    # in x's own layout: a gathered weight must multiply as the unsharded
+    # one does (a transposed view would take another GEMM on the card)
+    return out.movedim(0, d).contiguous()
+
+
+def _scatter_dim(x: torch.Tensor, d: int, group) -> torch.Tensor:
+    """This rank's block along ``d`` of the sum over ``group``."""
+    n = dist.get_world_size(group)
+    xt = x.movedim(d, 0).contiguous()
+    out = torch.empty((xt.shape[0] // n, *xt.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _record("reduce-scatter", _nbytes(xt), _nbytes(out))
+    reduce_scatter_into(out, xt, group=group)
+    return out.movedim(0, d).contiguous()
 
 
 def unshard(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """The global tensor from every rank's block (all-gathers over the
-    spec's axes; each rank gets the whole)."""
+    spec's axes; each rank gets the whole; no gradient)."""
+    x = x.detach()
     for d, part in enumerate(spec):
         axes = part_axes(part)
-        if axes:
+        if not _trivial(axes, mesh):
             x = _gather_dim(x, d, axis_group(mesh, axes))
     return x.contiguous()
 
@@ -223,40 +261,77 @@ def unshard_tree(tree, spec_tree, mesh):
 # collectives that gradients flow through
 # ---------------------------------------------------------------------------
 
-class _AllGatherRows(torch.autograd.Function):
+# every collective above and below reports to the active tallies
+_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+          "collective-permute")
+_TALLIES: List["Tally"] = []
+
+
+class Tally:
+    """Per collective kind, the reference's ``collective_bytes`` keys:
+    ``count``, ``operand_bytes`` and ``result_bytes`` (an all-gather's
+    operand is its result over the group size, a reduce-scatter's its
+    result times the group size, an all-reduce's its result)."""
+
+    def __init__(self):
+        self.kinds = {k: {"count": 0, "operand_bytes": 0, "result_bytes": 0}
+                      for k in _KINDS}
+
+    def add(self, kind: str, operand_bytes: int, result_bytes: int) -> None:
+        rec = self.kinds[kind]
+        rec["count"] += 1
+        rec["operand_bytes"] += operand_bytes
+        rec["result_bytes"] += result_bytes
+
+    @property
+    def operand_bytes(self) -> int:
+        return sum(v["operand_bytes"] for v in self.kinds.values())
+
+
+@contextlib.contextmanager
+def tally():
+    """Counts the collectives issued inside the block (a :class:`Tally`);
+    tallies nest."""
+    t = Tally()
+    _TALLIES.append(t)
+    try:
+        yield t
+    finally:
+        _TALLIES.remove(t)
+
+
+def _record(kind: str, operand_bytes: int, result_bytes: int) -> None:
+    for t in _TALLIES:
+        t.add(kind, operand_bytes, result_bytes)
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    _record("all-reduce", _nbytes(out), _nbytes(out))
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllGatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _gather_dim(x, 0, group)
+    def forward(ctx, x, d, group):
+        ctx.d, ctx.group = d, group
+        return _gather_dim(x, d, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter_rows(g, ctx.group), None
-
-
-def _scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
-    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    reduce_scatter_into(out, x.contiguous(), group=group)
-    return out
+        return _scatter_dim(g, ctx.d, ctx.group), None, None
 
 
 class _ReduceScatterRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _scatter_rows(x, group)
+        return _scatter_dim(x, 0, group)
 
     @staticmethod
     def backward(ctx, g):
         return _gather_dim(g, 0, ctx.group), None
-
-
-def _summed(x: torch.Tensor, group) -> torch.Tensor:
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
-    return out
 
 
 class _Psum(torch.autograd.Function):
@@ -270,27 +345,57 @@ class _Psum(torch.autograd.Function):
         return (_summed(g, ctx.group) if ctx.sum_grad else g), None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, axes: Sequence[str], mesh
+                   ) -> torch.Tensor:
+    """Every rank's block along ``axes`` concatenated on ``dim`` in block
+    order (FSDP's gather of a weight stored sharded on ``dim``); its
+    backward reduce-scatters the gradient on ``dim``: the sum over the
+    axes, each rank keeping its block."""
+    if _trivial(axes, mesh):
+        return x
+    return _AllGatherDim.apply(x, dim, axis_group(mesh, axes))
+
+
 def all_gather_rows(x: torch.Tensor, axes: Sequence[str], mesh
                     ) -> torch.Tensor:
     """The rows of every rank's block along ``axes``, concatenated in
     block order; its backward reduce-scatters the rows' gradient."""
-    if not present(axes, mesh):
-        return x
-    return _AllGatherRows.apply(x, axis_group(mesh, axes))
+    return all_gather_dim(x, 0, axes, mesh)
 
 
 def reduce_scatter_rows(x: torch.Tensor, axes: Sequence[str], mesh
                         ) -> torch.Tensor:
     """This rank's row block of the sum over ``axes`` of every rank's
     ``x`` (rows divide by the axes' size); its backward all-gathers."""
-    if not present(axes, mesh):
+    if _trivial(axes, mesh):
         return x
     return _ReduceScatterRows.apply(x, axis_group(mesh, axes))
 
 
+def copy_to(x: torch.Tensor, axes: Sequence[str], mesh) -> torch.Tensor:
+    """``x`` itself; its backward sums the gradient over ``axes``.  A
+    replicated activation enters a product sharded over the axes through
+    it, so each rank's partial gradient (from its own columns) adds up
+    to the whole."""
+    if _trivial(axes, mesh):
+        return x
+    return _CopyTo.apply(x, axis_group(mesh, axes))
+
+
 def psum(x: torch.Tensor, axes: Sequence[str], mesh) -> torch.Tensor:
     """The sum over ``axes`` of every rank's ``x``; identity backward."""
-    if not present(axes, mesh):
+    if _trivial(axes, mesh):
         return x
     return _Psum.apply(x, axis_group(mesh, axes), False)
 
@@ -300,18 +405,30 @@ def psum_partials(x: torch.Tensor, axes: Sequence[str], mesh
     """The sum over ``axes`` of every rank's partial ``x``; the backward
     sums the ranks' cotangents too (the transpose of a sum of partials
     whose replicated consumer each rank counts ``1 / n`` of)."""
-    if not present(axes, mesh):
+    if _trivial(axes, mesh):
         return x
     return _Psum.apply(x, axis_group(mesh, axes), True)
+
+
+def pmax(x: torch.Tensor, axes: Sequence[str], mesh) -> torch.Tensor:
+    """The elementwise max over ``axes`` of every rank's ``x``, without
+    a gradient."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    if not _trivial(axes, mesh):
+        _record("all-reduce", _nbytes(out), _nbytes(out))
+        dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                        group=axis_group(mesh, axes))
+    return out
 
 
 def all_reduce_grads(grads: Sequence[torch.Tensor], axes: Sequence[str],
                      mesh) -> None:
     """Sum each tensor of ``grads`` in place over ``axes``."""
-    if not present(axes, mesh):
+    if _trivial(axes, mesh):
         return
     group = axis_group(mesh, axes)
     for g in grads:
+        _record("all-reduce", _nbytes(g), _nbytes(g))
         dist.all_reduce(g, group=group)
 
 

@@ -1409,3 +1409,40 @@ def test_clique_cell_on_nccl_mesh_equals_count_packed(nccl_mesh, T):
     for a, b in ((nv, nv_u), (t, t_u), (f, f_u)):
         assert torch.equal(a, b)
     assert float(total) == int(hard.sum())
+
+
+# ---------------------------------------------------------------------------
+# the transformer's sharding on one card (A13e-2)
+# ---------------------------------------------------------------------------
+
+LM_ONE_RANK = [(a, s) for a in ("granite-3-8b", "deepseek-moe-16b")
+               for s in ("train_4k", "prefill_32k", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", LM_ONE_RANK,
+                         ids=[f"{a}-{s}" for a, s in LM_ONE_RANK])
+def test_lm_cells_on_nccl_mesh_equal_unsharded(nccl_mesh, arch, shape):
+    """The reduced LM cells on the 1-rank NCCL mesh against the same
+    cells without a mesh, on the card and the same seeded arguments:
+    equal to the bit (world-1 collectives are copies, and the
+    vocab-parallel log-sum-exp does ATen's ``logsumexp`` arithmetic)."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.optim import tree_leaves, tree_unflatten
+    from repro_torch.sharding import spmd
+    spec = configs.get(arch)
+    cell = steps.build_cell(spec, shape, nccl_mesh, reduced=True)
+    plain = steps.build_cell(spec, shape, None, reduced=True)
+    rng = np.random.default_rng(len(arch) + len(shape))
+    abstract = list(plain.abstract_args)
+    vals = [torch.from_numpy(rng.integers(0, 2, x.shape) if not
+                             x.is_floating_point() else
+                             np.abs(rng.normal(size=x.shape) * 0.02))
+            .to(x.dtype).cuda() for x in tree_leaves(abstract)]
+
+    def args():
+        return tree_unflatten(abstract, [v.clone() for v in vals])
+    got = cell.step_fn(*spmd.shard_tree(args(), cell.in_specs, nccl_mesh))
+    want = plain.step_fn(*args())
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.is_cuda and torch.equal(a, b)

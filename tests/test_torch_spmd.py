@@ -14,10 +14,13 @@ sharded cells, on CPU process groups over gloo.
   ranks after AdamW; ``compressed_allreduce`` bitwise equal to the
   reference at world 2 and within one quantum at world 4;
   ``shard``/``unshard`` round trips; ``restore_checkpoint(mesh=,
-  specs=)``.
+  specs=)``; ``copy_to``, ``all_gather_dim`` and ``pmax`` against their
+  unsharded math (and the collective tally's bytes).
 * In process: ``int8_compress`` / ``int8_decompress`` bitwise against
-  JAX's, the mesh constructors' errors, and the LM cells' refusal of a
-  mesh.
+  JAX's, the mesh constructors' errors, and the LM cells of granite-3-8b
+  and deepseek-moe-16b on a 1-rank mesh equal to the unsharded cells to
+  the bit (world-1 collectives are copies).  ``tests/test_torch_lm_shard.py``
+  holds the LM cells on larger meshes against the reference.
 """
 import json
 import os
@@ -39,7 +42,9 @@ from repro_torch import configs
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps
 from repro_torch.optim import (compressed_allreduce, compressed_psum_tree,
-                               int8_compress, int8_decompress)
+                               int8_compress, int8_decompress, tree_leaves,
+                               tree_unflatten)
+from repro_torch.sharding import spmd
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -200,14 +205,39 @@ def test_one_rank_mesh_runs_the_clique_cell(one_rank_mesh):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k",
-                                   "decode_32k"])
-def test_lm_cells_refuse_a_mesh(one_rank_mesh, shape):
-    spec = configs.get("granite-3-8b")
-    if shape not in spec.cells:
-        shape = "train_4k"
-    with pytest.raises(NotImplementedError, match="A13e-2"):
-        steps.build_cell(spec, shape, one_rank_mesh, reduced=True)
+LM_ONE_RANK = [(a, s) for a in ("granite-3-8b", "deepseek-moe-16b")
+               for s in ("train_4k", "prefill_32k", "decode_32k")]
+
+
+def lm_args(cell, seed):
+    """Seeded global arguments of an LM cell (integers in {0, 1}, floats
+    ``|normal| x 0.02``, as ``tests/test_torch_cells.py``)."""
+    rng = np.random.default_rng(seed)
+    abstract = list(cell.abstract_args)
+    leaves = tree_leaves(abstract)
+    return tree_unflatten(abstract, [
+        torch.from_numpy(rng.integers(0, 2, x.shape) if not
+                         x.is_floating_point() else
+                         np.abs(rng.normal(size=x.shape) * 0.02)).to(x.dtype)
+        for x in leaves])
+
+
+@pytest.mark.parametrize("arch,shape", LM_ONE_RANK,
+                         ids=[f"{a}-{s}" for a, s in LM_ONE_RANK])
+def test_one_rank_mesh_runs_the_lm_cells(one_rank_mesh, arch, shape):
+    spec = configs.get(arch)
+    cell = steps.build_cell(spec, shape, one_rank_mesh, reduced=True)
+    plain = steps.build_cell(spec, shape, None, reduced=True, device="cpu")
+    assert cell.in_specs is not None and plain.in_specs is None
+    args = lm_args(plain, seed=len(arch) + len(shape))
+
+    def clone():
+        return tree_unflatten(args, [x.clone() for x in tree_leaves(args)])
+    got = cell.step_fn(*spmd.shard_tree(clone(), cell.in_specs,
+                                        one_rank_mesh))
+    want = plain.step_fn(*clone())
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
 
 
 def test_skipped_cell_raises():

@@ -18,10 +18,12 @@ import numpy as np
 
 CASES = {
     2: ["clique (2, 1)", "clique (1, 2)", "compress world 2",
-        "recsys (1, 2)", "checkpoint (2, 1)", "shard (2, 1)"],
+        "recsys (1, 2)", "checkpoint (2, 1)", "shard (2, 1)",
+        "copy_to world 2", "all_gather_dim world 2", "pmax world 2"],
     4: ["clique (2, 2)", "clique (2, 2) vs reference", "gnn gin-tu (2, 2)",
         "gnn egnn (2, 2)", "recsys (2, 2)", "compress world 4",
-        "shard (2, 2)", "shard (2, 1, 2)", "checkpoint (2, 2)"],
+        "shard (2, 2)", "shard (2, 1, 2)", "checkpoint (2, 2)",
+        "copy_to world 4", "all_gather_dim world 4", "pmax world 4"],
 }
 COMPRESS_SHAPE = (5, 7)          # 35 elements: padded at worlds 2 and 4
 SCATTER_REL = 1e-5
@@ -306,6 +308,71 @@ def case_checkpoint(case, rank, world, ref, out):
         _equal(got["tree"][k], want, k)
 
 
+def _world_mesh(world):
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh((world,), ("model",), device="cpu")
+
+
+def _rank_values(world, shape, seed):
+    """(every rank's seeded value, stacked on dim 0): rank r's is row r."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(world, *shape))
+                            .astype(np.float32))
+
+
+def case_copy_to(case, rank, world, ref, out):
+    """copy_to is ``x`` forward; its backward sums every rank's cotangent:
+    d/dx of sum_r <w_r, x> is sum_r w_r (one all-reduce, tallied)."""
+    import torch
+    from repro_torch.sharding import spmd
+    mesh = _world_mesh(world)
+    x = _rank_values(1, (3, 5), 20)[0].requires_grad_(True)
+    w = _rank_values(world, (3, 5), 21)
+    with spmd.tally() as t:
+        y = spmd.copy_to(x, ("model",), mesh)
+        _equal(y.detach(), x.detach(), "forward")
+        (gx,) = torch.autograd.grad((y * w[rank]).sum(), [x])
+    torch.testing.assert_close(gx, w.sum(0), rtol=1e-6, atol=1e-6)
+    assert t.kinds["all-reduce"] == {"count": 1, "operand_bytes": 60,
+                                     "result_bytes": 60}, t.kinds
+
+
+def case_all_gather_dim(case, rank, world, ref, out):
+    """all_gather_dim of each rank's block on dim 1 is the global tensor;
+    its backward gives each rank its block of sum_r g_r (a
+    reduce-scatter); the tally's bytes follow collective_bytes."""
+    import torch
+    from repro_torch.sharding import P, spmd
+    mesh = _world_mesh(world)
+    full = _rank_values(1, (3, 8, 5), 22)[0]
+    block = spmd.shard(full, P(None, "model", None), mesh)
+    block.requires_grad_(True)
+    g = _rank_values(world, (3, 8, 5), 23)
+    with spmd.tally() as t:
+        y = spmd.all_gather_dim(block, 1, ("model",), mesh)
+        _equal(y.detach(), full, "forward")
+        (gb,) = torch.autograd.grad((y * g[rank]).sum(), [block])
+    want = spmd.shard(g.sum(0), P(None, "model", None), mesh)
+    torch.testing.assert_close(gb, want, rtol=1e-6, atol=1e-6)
+    n = full.numel() * 4
+    assert t.kinds["all-gather"] == {"count": 1, "operand_bytes": n // world,
+                                     "result_bytes": n}, t.kinds
+    assert t.kinds["reduce-scatter"] == {"count": 1, "operand_bytes": n,
+                                         "result_bytes": n // world}, t.kinds
+
+
+def case_pmax(case, rank, world, ref, out):
+    """pmax is the elementwise max over the ranks, without a gradient."""
+    from repro_torch.sharding import spmd
+    mesh = _world_mesh(world)
+    x = _rank_values(world, (4, 6), 24)
+    got = spmd.pmax(x[rank].clone().requires_grad_(True), ("model",), mesh)
+    _equal(got, x.max(0).values, "pmax")
+    assert not got.requires_grad
+
+
 _CASE_FNS = {"clique": case_clique, "compress": case_compress,
              "gnn": case_gnn, "recsys": case_recsys, "shard": case_shard,
-             "checkpoint": case_checkpoint}
+             "checkpoint": case_checkpoint, "copy_to": case_copy_to,
+             "all_gather_dim": case_all_gather_dim, "pmax": case_pmax}
