@@ -516,7 +516,7 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20,
             def launch():
                 check_rc(so.triangle_count_tiles_launch(
                     A.data_ptr(), cand.data_ptr(), out64.data_ptr(), B, T,
-                    stream_ptr()), "triangle_count_tiles")
+                    stream_ptr(), None, None), "triangle_count_tiles")
             # 3 word ops (AND, popcount, add) per word of every induced edge
             word_ops = 3 * W * int(edges_within_ref(A, cand).sum())
             lib_fn, lib_counts = bmm_yardstick(A, cand)
@@ -544,7 +544,7 @@ def kernel_cases(rows, errs, A, cand, l, tag, reps=20,
                 check_rc(so.clique_count_tiles_launch(
                     A.data_ptr(), cand.data_ptr(), out.data_ptr(),
                     items.data_ptr(), out[B:].data_ptr(), *scratch_args, B, T,
-                    l, stream_ptr()), "clique_count_tiles")
+                    l, stream_ptr(), None, None), "clique_count_tiles")
             # 2 word ops (AND, popcount) per word of every DFS step, and
             # 4 (two ANDs, popcount, add) per word of every closing edge
             word_ops = 2 * W * int(work["steps"].sum()) + \
@@ -616,7 +616,8 @@ def item_case(rows, errs, A, cand, l, tag, tile_counts, reps=20,
         counters.zero_()
         check_rc(so.clique_count_items_launch(
             A.data_ptr(), cand.data_ptr(), per_v.data_ptr(), items.data_ptr(),
-            counters.data_ptr(), *scratch_args, B, T, l, stream_ptr()),
+            counters.data_ptr(), *scratch_args, B, T, l, stream_ptr(), None,
+            None),
             "clique_count_items")
     t = timings(launch, reps, calls)
     kept = int((want > 0).sum())
@@ -694,7 +695,8 @@ def list_case(rows, errs, A, cand, l, cap, tag, reps=0,
         check_rc(so.clique_list_tiles_launch(
             A.data_ptr(), cand.data_ptr(), buf.data_ptr(), cnt.data_ptr(),
             ovf.data_ptr(), per_x.data_ptr(), items.data_ptr(),
-            counters.data_ptr(), *scratch_args, B, T, l, cap, stream_ptr()),
+            counters.data_ptr(), *scratch_args, B, T, l, cap, stream_ptr(),
+            None, None),
             "clique_list_tiles")
     # with the batch resident in L2, as the engine finds it after its H2D
     t = timings(launch, reps, calls)
@@ -1191,7 +1193,7 @@ def obs_phase(mg, mplan, lg, lplan, dispatch_runs, list_trace,
         f"{k} {v:.3f}" for k, v in sorted(stages.items())))
     for r in sorted(recs, key=lambda r: r["sig"]):
         log(f"[obs]   kernel_records {r['sig']}: calls {r['calls']}, "
-            f"execute_s {r['execute_s']:.4f} (host blocked at harvest), "
+            f"execute_s {r['execute_s']:.4f} (kernel event seconds), "
             f"compile_s {r['compile_s']:.4f}")
     log(f"[obs]   DFS count kernel device time of a k=7 query (profiler, "
         f"[dispatch] device busy window): {busy['count_kernel_events']} "
@@ -4816,8 +4818,7 @@ def main(argv=None) -> int:
     queries = []  # (name, Stats) of every query, for [resilience]
     for k in (5, 7):
         # with stage_times given, the engine brackets every count_tiles
-        # call with CUDA events and sums the spans per bin (host enqueue
-        # included: no device time)
+        # call with CUDA events and sums their device seconds per bin
         stage = {}
         t0 = time.perf_counter()
         res = ebbkc.count(g, k, engine_kwargs={"stage_times": stage})

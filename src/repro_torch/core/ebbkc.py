@@ -23,6 +23,7 @@ import numpy as np
 from .engine_np import Stats, count_rec_C, count_rec_T, list_rec_C
 from .graph import Graph
 from . import pipeline
+from ..obs import trace
 
 BACKENDS = ("host", "torch")
 
@@ -120,7 +121,9 @@ def list_cliques(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
         res = listing.stream_cliques(plan or g, k, sink, order=order,
                                      et_t=et_t, device=device,
                                      **(engine_kwargs or {}))
-        return sink.result(), res.stats
+        with trace.span("list/collect", rows=sink.accepted):
+            rows = sink.result()
+        return rows, res.stats
     out_all: List[Tuple[int, ...]] = []
     for tile in pipeline.iter_tiles(plan or g, k, mode=order):
         cand = (1 << tile.s) - 1

@@ -46,10 +46,18 @@ class Stats:
     device_tiles: Dict[int, int] = dataclasses.field(default_factory=dict)
     device_flops: Dict[int, int] = dataclasses.field(default_factory=dict)
     device_bytes: Dict[int, int] = dataclasses.field(default_factory=dict)
-    # wall seconds the host spent NOT blocked while device work was in
-    # flight -- an upper bound on the device time hidden by double-buffered
-    # staging; 0.0 under synchronous staging
+    # device seconds of each counted batch's lane interval (its staging
+    # copy to its copy back, timed by CUDA events) that fell outside the
+    # consumer's harvest waits: device work hidden behind host work; 0.0
+    # on CPU lanes, which run inline
     staging_overlap_s: float = 0.0
+    # device seconds between the pair of CUDA timing events that the
+    # kernel library records around each kernel call of the dispatchers
+    # (count steps, sizing passes, list kernels); 0.0 on CPU lanes
+    kernel_device_s: float = 0.0
+    # seconds the listing consumer blocked on the decode worker's backlog
+    # (and on its final drain)
+    decode_backlog_s: float = 0.0
     # speculative emit capacity (ListDispatcher, capacity="speculative"):
     # batches whose capacity guess proved too small and were listed once
     # more on the device at the exact size
@@ -121,6 +129,8 @@ class Stats:
         "device_flops": "dict",
         "device_bytes": "dict",
         "staging_overlap_s": "sum",
+        "kernel_device_s": "sum",
+        "decode_backlog_s": "sum",
         "emit_retries": "sum",
         "retries": "sum",
         "demotions": "sum",

@@ -40,7 +40,8 @@ from . import tiles as tiles_mod
 from ..convert import batch_to_torch
 from ..device import resolve_device
 from ..kernels import ops as kops
-from ..kernels.common import pascal_table
+from ..kernels.common import (Timing, pascal_table, record_around,
+                              timing_events)
 from ..kernels.ref import edges_within_ref
 from ..tune import search as tune_search
 
@@ -84,42 +85,37 @@ def count_2plex_closed_np(nv: np.ndarray, f: np.ndarray, l: int) -> np.ndarray:
 
 def count_packed(A: torch.Tensor, cand: torch.Tensor, l: int,
                  method: str = "auto", et: bool = True,
-                 stage_times: Optional[Dict[str, float]] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None,
+                 timing: Optional[Timing] = None):
     """Device step over one packed batch of int32 word views.
 
     Returns (hard (B,) int64 kernel counts holding uint32 values, with the
     2-plex tiles masked to 0; nv, t, f (B,) int32) -- the host combines
-    them with the exact int64 closed form.  With ``stage_times`` given and
-    ``A`` on a CUDA device, CUDA events bracket the ``count_tiles`` call
-    and its span (host enqueue included, so not the kernel's device time)
-    accumulates in seconds under ``"count_tiles_T<T>"``.  ``backend``
-    selects the kernel implementation (:mod:`repro_torch.kernels.ops`
-    registry).
+    them with the exact int64 closed form.  ``backend`` selects the kernel
+    implementation (:mod:`repro_torch.kernels.ops` registry).  On a CUDA
+    device, ``timing`` (a pair of
+    :func:`~repro_torch.kernels.common.timing_events`) is recorded around
+    the count kernel's launches (around the torch ops that count at
+    l <= 2): their elapsed time, read once the stream has passed the
+    second, is the kernel's device time.  Nothing here waits for the
+    device.
     """
     B = A.shape[0]
     z = torch.zeros(B, dtype=torch.int32, device=A.device)
-    if l == 0:
-        return torch.ones(B, dtype=torch.int64, device=A.device), z, z, z
-    if l == 1:
-        return popcount_words(widen(cand)).sum(-1), z, z, z
-    if l == 2:
-        return edges_within_ref(A, cand), z, z, z
+    if l <= 2:
+        with record_around(timing if A.is_cuda else None, A.device):
+            if l == 0:
+                hard = torch.ones(B, dtype=torch.int64, device=A.device)
+            elif l == 1:
+                hard = popcount_words(widen(cand)).sum(-1)
+            else:
+                hard = edges_within_ref(A, cand)
+        return hard, z, z, z
     nv, t, f = plex_stats(A, cand)
     if et:
         cand = torch.where((t <= 2)[:, None], torch.zeros_like(cand), cand)
-    if stage_times is None or not A.is_cuda:
-        return (kops.count_tiles(A, cand, l, method=method, backend=backend),
-                nv, t, f)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    hard = kops.count_tiles(A, cand, l, method=method, backend=backend)
-    end.record()
-    end.synchronize()
-    key = f"count_tiles_T{A.shape[1]}"
-    stage_times[key] = stage_times.get(key, 0.) \
-        + start.elapsed_time(end) / 1e3
-    return hard, nv, t, f
+    return (kops.count_tiles(A, cand, l, method=method, backend=backend,
+                             timing=timing), nv, t, f)
 
 
 def combine_counts(hard, nv, t, f, l: int, et: bool) -> int:
@@ -189,8 +185,10 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
     ``stats.kernel_compile_s``, ``tune_s`` and ``tune_cache_hit``.
     ``stage_times`` (optional dict) accumulates extract/pack/device/combine
     wall-clock seconds, and on a CUDA device the ``count_tiles`` device
-    seconds per bin (see :func:`count_packed`); with it given, each batch
-    synchronizes the device so its time is billed to "device".
+    seconds per bin under ``"count_tiles_T<T>"``, from the timing events
+    of :func:`count_packed` (the multi-lane dispatcher reads them at
+    harvest); with it given, each inline batch synchronizes the device
+    so its time is billed to "device".
 
     ``devices`` routes the packed batches through the multi-lane
     dispatcher (:class:`repro_torch.runtime.dispatch.Dispatcher`) instead
@@ -260,8 +258,11 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
             max_tile = max(max_tile, item.T)
             t0 = time.perf_counter()
             A, cand = batch_to_torch(item.A, item.cand, dev)
+            timing = (timing_events(torch.cuda.current_stream(dev))
+                      if stage_times is not None and dev.type == "cuda"
+                      else None)
             out = count_packed(A, cand, l, method=method, et=et,
-                               stage_times=stage_times, backend=backend)
+                               backend=backend, timing=timing)
             if stage_times is not None and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
@@ -271,6 +272,10 @@ def count(g: Graph, k: int, order: str = "hybrid", et_t: int = 3,
                     + t1 - t0
                 stage_times["combine"] = stage_times.get("combine", 0.) \
                     + time.perf_counter() - t1
+            if timing is not None:  # complete: the device synchronized
+                key = f"count_tiles_T{item.T}"
+                stage_times[key] = stage_times.get(key, 0.) \
+                    + timing[0].elapsed_time(timing[1]) / 1e3
     finally:
         stream.close()  # stops the pack workers on error too
     stats.kernel_compile_s += kops.consume_compile_s()

@@ -38,9 +38,9 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
-from .common import (MASK32, WORD, check_tiles, count_call, edges_within,
-                     gt_masks, popcount_words, triangles_within_chunked,
-                     unpack_bits, widen)
+from .common import (MASK32, WORD, Timing, check_tiles, count_call,
+                     edges_within, gt_masks, launch_events, popcount_words,
+                     triangles_within_chunked, unpack_bits, widen)
 
 #: most tiles one launch of a DFS kernel takes (an item packs its tile
 #: index into 16 bits); the wrappers split a larger batch into launches
@@ -217,10 +217,12 @@ def dfs_scratch(B: int, T: int, l: int, device: torch.device):
     return items, (scratch.data_ptr(), scratch.numel()), scratch
 
 
-def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
-                       l: int) -> torch.Tensor:
+def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
+                       timing: Optional[Timing] = None) -> torch.Tensor:
     """(B, T, W) int32, (B, W) int32 -> (B,) int64 per-tile l-clique counts
-    (uint32 values, wrapping mod 2**32 as the reference does)."""
+    (uint32 values, wrapping mod 2**32 as the reference does).  On a CUDA
+    tensor, ``timing`` (:func:`~repro_torch.kernels.common.timing_events`)
+    is recorded around the launches."""
     B, T, _ = check_tiles(A, cand)
     _check_l(l)
     if A.device.type == "cpu":
@@ -228,20 +230,23 @@ def clique_count_tiles(A: torch.Tensor, cand: torch.Tensor,
     if A.device.type != "cuda":
         raise ValueError(f"no clique kernel for device {A.device}")
     if l > T:  # no tile of T vertices holds an l-clique
+        launch_events(timing, 0, A.device)
         return torch.zeros(B, dtype=torch.int64, device=A.device)
     chunks = launch_chunks(B, count_launch_tiles(T))
     # out[:B] the counts, then each launch's two item counters, all 0
     out = torch.zeros(B + 2 * len(chunks), dtype=torch.int32, device=A.device)
+    events = launch_events(timing, len(chunks), A.device)
     if B:
         items, scratch_args, _scratch = dfs_scratch(chunks[0][1], T, l, A.device)
         so = _build.lib()
-        for i, (lo, hi) in enumerate(chunks):
+        for i, ((lo, hi), ev) in enumerate(zip(chunks, events)):
             with torch.cuda.device(A.device):
                 stream = torch.cuda.current_stream().cuda_stream
                 rc = so.clique_count_tiles_launch(
                     A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
                     out[lo:hi].data_ptr(), items.data_ptr(),
-                    out[B + 2 * i:].data_ptr(), *scratch_args, hi - lo, T, l, stream)
+                    out[B + 2 * i:].data_ptr(), *scratch_args, hi - lo, T, l, stream,
+                    *ev)
             if rc:
                 raise RuntimeError(f"clique_count_tiles launch failed: CUDA "
                                    f"error {rc}")
@@ -283,7 +288,7 @@ def clique_count_items(A: torch.Tensor, cand: torch.Tensor,
                     A[lo:hi].data_ptr(), cand[lo:hi].data_ptr(),
                     per_v[lo:hi].data_ptr(), items.data_ptr(),
                     counters[2 * i:].data_ptr(), *scratch_args, hi - lo, T, l,
-                    stream)
+                    stream, None, None)
             if rc:
                 raise RuntimeError(f"clique_count_items launch failed: CUDA "
                                    f"error {rc}")

@@ -40,9 +40,10 @@ import torch
 
 from . import _build
 from .clique_count import LAUNCH_TILES, dfs_scratch, launch_chunks
-from .common import (MASK32, WORD, check_tiles, count_call, emit_edges,
-                     emit_frontier, emit_triangles, gt_masks, member_rows,
-                     popcount_words, unpack_bits, widen)
+from .common import (MASK32, WORD, Timing, check_tiles, count_call,
+                     emit_edges, emit_frontier, emit_triangles, gt_masks,
+                     launch_events, member_rows, popcount_words, unpack_bits,
+                     widen)
 
 #: most bytes of one launch's per-item count buffer (B * T * T int64):
 #: the wrapper splits a batch into launches of at most
@@ -161,7 +162,7 @@ def launch_tiles(T: int) -> int:
 
 
 def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
-                      capacity: int) -> Triple:
+                      capacity: int, timing: Optional[Timing] = None) -> Triple:
     """(B, T, W) int32, (B, W) int32 -> (buf (B, capacity, l) int32 local
     ids, count (B,) int64 holding the true uint32 totals, overflow (B,)
     int64 flags).
@@ -170,7 +171,9 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
     kernel writes every row, zeros past ``min(count, capacity)`` included.
     ``launches`` counts one per launch of the C entry point (one a call,
     unless the batch is split into several), though each runs four device
-    passes.
+    passes.  On a CUDA tensor, ``timing``
+    (:func:`~repro_torch.kernels.common.timing_events`) is recorded around
+    the launches.
     """
     B, T, _ = check_tiles(A, cand)
     _check(l, capacity)
@@ -179,14 +182,16 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
     if A.device.type != "cuda":
         raise ValueError(f"no list kernel for device {A.device}")
     if l > T:  # no tile of T vertices holds an l-clique
+        launch_events(timing, 0, A.device)
         zeros = torch.zeros(B, dtype=torch.int64, device=A.device)
         return (torch.zeros((B, capacity, l), dtype=torch.int32,
                             device=A.device), zeros, zeros.clone())
     buf = torch.empty((B, capacity, l), dtype=torch.int32, device=A.device)
     cnt = torch.empty(B, dtype=torch.int32, device=A.device)
     ovf = torch.empty(B, dtype=torch.int32, device=A.device)
+    chunks = launch_chunks(B, launch_tiles(T))
+    events = launch_events(timing, len(chunks), A.device)
     if B:
-        chunks = launch_chunks(B, launch_tiles(T))
         n = chunks[0][1]
         # each item's count, then first rank, at [b, v, x]; the list of
         # items; per launch the list's length and the two passes' counters
@@ -195,7 +200,7 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
         counters = torch.zeros(3 * len(chunks), dtype=torch.int32,
                                device=A.device)
         so = _build.lib()
-        for i, (lo, hi) in enumerate(chunks):
+        for i, ((lo, hi), ev) in enumerate(zip(chunks, events)):
             with torch.cuda.device(A.device):
                 if i:  # the scan pass left first ranks in per_x
                     per_x.zero_()
@@ -205,7 +210,7 @@ def clique_list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
                     buf[lo:hi].data_ptr(), cnt[lo:hi].data_ptr(),
                     ovf[lo:hi].data_ptr(), per_x.data_ptr(), items.data_ptr(),
                     counters[3 * i:].data_ptr(), *scratch_args, hi - lo, T, l,
-                    capacity, stream)
+                    capacity, stream, *ev)
             if rc:
                 raise RuntimeError(f"clique_list_tiles launch failed: CUDA "
                                    f"error {rc}")

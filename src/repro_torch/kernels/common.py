@@ -13,9 +13,10 @@ the host Pascal table of the closed-form 2-plex count.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +44,61 @@ def count_call(module: str, counter: str) -> None:
     mod = sys.modules[module]
     with COUNTER_LOCK:
         setattr(mod, counter, getattr(mod, counter) + 1)
+
+
+#: a pair of CUDA timing events, (start, end), that a kernel call records
+#: around its device work (see :func:`timing_events`)
+Timing = Tuple[torch.cuda.Event, torch.cuda.Event]
+
+
+def timing_events(stream=None) -> Timing:
+    """A (start, end) pair of CUDA timing events for a wrapper's ``timing=``.
+
+    Both are recorded once on ``stream`` (the current stream by default),
+    which creates them: the kernel library records them again by their
+    handles, around its launches (:func:`launch_events`), and a handle
+    exists only once torch has created the event.  Their elapsed time,
+    read once the stream has passed ``end``, is the call's device time."""
+    pair = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    for event in pair:
+        event.record(stream)
+    return pair
+
+
+def launch_events(timing: Optional[Timing], n: int,
+                  device: torch.device) -> List[tuple]:
+    """The (start, end) event handles of each of a wrapper's ``n`` launches
+    of the kernel library: ``timing``'s start on the first launch, its end
+    on the last, None elsewhere (and everywhere without ``timing``).  The
+    library records them on the launch stream inside the call, so no host
+    work of the wrapper's falls between them.  With no launch (``n`` = 0)
+    both are recorded now on ``device``'s current stream: the pair then
+    brackets nothing."""
+    if timing is None:
+        return [(None, None)] * n
+    start, end = timing
+    if n == 0:
+        stream = torch.cuda.current_stream(device)
+        start.record(stream)
+        end.record(stream)
+        return []
+    return [(start.cuda_event if i == 0 else None,
+             end.cuda_event if i == n - 1 else None) for i in range(n)]
+
+
+@contextlib.contextmanager
+def record_around(timing: Optional[Timing], device: torch.device):
+    """Record ``timing``'s pair from the host around the body, on
+    ``device``'s current stream, for device work that torch ops enqueue
+    (no kernel of the library); nothing without ``timing``."""
+    if timing is None:
+        yield
+        return
+    stream = torch.cuda.current_stream(device)
+    timing[0].record(stream)
+    yield
+    timing[1].record(stream)
 
 
 def member_rows(A: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,7 @@
 
 #include "dfs_items.cuh"
 #include "dfs_wide.cuh"
+#include "events.cuh"
 
 namespace repro_torch {
 namespace {
@@ -100,13 +101,17 @@ int count_launch(const void* A, const void* cand, void* out, void* per, void* li
 // dfs_slot_words(T, l) (one slot a warp of the item pass).  Launches the
 // branch and item passes on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an argument it does not take, or the error of
-// the item pass's shared-memory opt-in).
+// the item pass's shared-memory opt-in).  `start` and `end` are CUDA timing
+// events or null (events.cuh), recorded on `stream` around the launches.
 extern "C" int clique_count_tiles_launch(const void* A, const void* cand, void* out, void* list,
                                          void* counters, void* scratch, long long scratch_words,
-                                         int B, int T, int l, void* stream) {
-  using repro_torch::ItemOut;
-  return repro_torch::count_launch<ItemOut::kTile>(A, cand, out, nullptr, list, counters,
-                                                   scratch, scratch_words, B, T, l, stream);
+                                         int B, int T, int l, void* stream, void* start,
+                                         void* end) {
+  using namespace repro_torch;
+  record_event(start, stream);
+  return record_end(count_launch<ItemOut::kTile>(A, cand, out, nullptr, list, counters, scratch,
+                                                 scratch_words, B, T, l, stream),
+                    end, stream);
 }
 
 // The count per first-level branch: per_v (B, T) uint64, zeroed by the
@@ -115,10 +120,12 @@ extern "C" int clique_count_tiles_launch(const void* A, const void* cand, void* 
 extern "C" int clique_count_items_launch(const void* A, const void* cand, void* per_v,
                                          void* list, void* counters, void* scratch,
                                          long long scratch_words, int B, int T, int l,
-                                         void* stream) {
-  using repro_torch::ItemOut;
-  return repro_torch::count_launch<ItemOut::kBranch>(A, cand, nullptr, per_v, list, counters,
-                                                     scratch, scratch_words, B, T, l, stream);
+                                         void* stream, void* start, void* end) {
+  using namespace repro_torch;
+  record_event(start, stream);
+  return record_end(count_launch<ItemOut::kBranch>(A, cand, nullptr, per_v, list, counters,
+                                                   scratch, scratch_words, B, T, l, stream),
+                    end, stream);
 }
 
 // Words of one warp's scratch slot of the wide path at tile width T and

@@ -56,6 +56,7 @@
 
 #include "dfs_items.cuh"
 #include "dfs_wide.cuh"
+#include "events.cuh"
 
 namespace repro_torch {
 namespace {
@@ -462,10 +463,10 @@ void launch_list_wide(const uint32_t* A, const uint32_t* cand, int* rows, uint32
 // Launches four kernels on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an argument it does not take, or the error of
 // a shared-memory opt-in).
-extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* out,
-                                        void* count, void* overflow, void* per_x, void* list,
-                                        void* counters, void* scratch, long long scratch_words,
-                                        int B, int T, int l, int capacity, void* stream) {
+static int list_launch(const void* A, const void* cand, void* out, void* count,
+                       void* overflow, void* per_x, void* list, void* counters, void* scratch,
+                       long long scratch_words, int B, int T, int l, int capacity,
+                       void* stream) {
   using namespace repro_torch;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const auto* a = static_cast<const uint32_t*>(A);
@@ -501,4 +502,18 @@ extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* o
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// list_launch's entry point.  `start` and `end` are CUDA timing events or
+// null (events.cuh), recorded on `stream` around the launches.
+extern "C" int clique_list_tiles_launch(const void* A, const void* cand, void* out,
+                                        void* count, void* overflow, void* per_x, void* list,
+                                        void* counters, void* scratch, long long scratch_words,
+                                        int B, int T, int l, int capacity, void* stream,
+                                        void* start, void* end) {
+  using namespace repro_torch;
+  record_event(start, stream);
+  return record_end(list_launch(A, cand, out, count, overflow, per_x, list, counters, scratch,
+                                scratch_words, B, T, l, capacity, stream),
+                    end, stream);
 }

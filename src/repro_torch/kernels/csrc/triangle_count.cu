@@ -49,6 +49,7 @@
 //     with the widths.
 #include <cuda_runtime.h>
 
+#include "events.cuh"
 #include "tile_bits.cuh"
 
 namespace repro_torch {
@@ -229,8 +230,8 @@ int launch(const uint32_t* A, const uint32_t* cand, long long* out, int B, cudaS
 // pointers; T a positive multiple of 32 (W = 1..8 by their own
 // instantiations, wider tiles by tri_wide).  Launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for another T).
-extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void* out, int B,
-                                           int T, void* stream) {
+static int triangle_launch(const void* A, const void* cand, void* out, int B, int T,
+                           void* stream) {
   using namespace repro_torch;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const auto* a = static_cast<const uint32_t*>(A);
@@ -251,4 +252,13 @@ extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void
       tri_wide<<<B, kBlockWarps * 32, 0, st>>>(a, c, o, T);
       return static_cast<int>(cudaGetLastError());
   }
+}
+
+// triangle_launch's entry point.  `start` and `end` are CUDA timing events
+// or null (events.cuh), recorded on `stream` around the launch.
+extern "C" int triangle_count_tiles_launch(const void* A, const void* cand, void* out, int B,
+                                           int T, void* stream, void* start, void* end) {
+  using namespace repro_torch;
+  record_event(start, stream);
+  return record_end(triangle_launch(A, cand, out, B, T, stream), end, stream);
 }

@@ -64,7 +64,7 @@ from . import clique_list as _cl
 from . import intersect as _is
 from . import ref as _ref
 from . import triangle_mm as _tm
-from .common import COUNTER_LOCK
+from .common import COUNTER_LOCK, Timing, record_around
 from ..obs import profile as obs_profile
 from ..obs import trace
 
@@ -281,11 +281,15 @@ def _timed_first_call(key: tuple, fn, A: torch.Tensor):
 
 
 def count_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
-                method: str = "auto", backend: Optional[str] = None
-                ) -> torch.Tensor:
+                method: str = "auto", backend: Optional[str] = None,
+                timing: Optional[Timing] = None) -> torch.Tensor:
     """Count l-cliques per tile: (B,T,W) int32 x (B,W) int32 -> (B,) int64
     (uint32 values).  ``backend`` selects the implementation (see the
-    module docstring)."""
+    module docstring).  On a CUDA tensor, ``timing``, a pair of events
+    from :func:`~repro_torch.kernels.common.timing_events`, is recorded
+    around the call's device work: by the kernel library around its
+    launches, or from the host around the torch ops of the ``ref``
+    version.  Nothing here waits for the device."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{METHODS}")
@@ -293,20 +297,21 @@ def count_tiles(A: torch.Tensor, cand: torch.Tensor, l: int,
         raise ValueError("counting requires l >= 1")
     b = _concrete(backend, A, "count", l, tune=method != "ref" and l > 2)
     if method == "ref" or b == "ref" or l <= 2:
-        return _ref.clique_count_tiles_ref(A, cand, l)
+        with record_around(timing if A.is_cuda else None, A.device):
+            return _ref.clique_count_tiles_ref(A, cand, l)
     if method == "mxu" or (method == "auto" and l == 3):
         if l != 3:
             raise ValueError("the triangle kernel implements l == 3 only")
         return _timed_first_call(
             ("tri", l, A.shape[1]),
-            lambda: _tm.triangle_count_tiles(A, cand), A)
+            lambda: _tm.triangle_count_tiles(A, cand, timing), A)
     return _timed_first_call(
         ("count", l, A.shape[1]),
-        lambda: _cc.clique_count_tiles(A, cand, l), A)
+        lambda: _cc.clique_count_tiles(A, cand, l, timing), A)
 
 
 def list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int, capacity: int,
-               backend: Optional[str] = None
+               backend: Optional[str] = None, timing: Optional[Timing] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """List l-cliques per tile into fixed-capacity local-id buffers.
 
@@ -314,13 +319,14 @@ def list_tiles(A: torch.Tensor, cand: torch.Tensor, l: int, capacity: int,
     int64 true totals holding uint32 values, overflow (B,) int64).
     Overflowed tiles keep the true count but only the first ``capacity``
     cliques; callers must relist them on the host, never truncate.
+    ``timing`` as in :func:`count_tiles`.
     """
     b = _concrete(backend, A, "list", l, capacity)
     if b == "ref":
         raise ValueError("the ref backend implements counting only")
     return _timed_first_call(
         ("list", l, A.shape[1]),
-        lambda: _cl.clique_list_tiles(A, cand, l, capacity), A)
+        lambda: _cl.clique_list_tiles(A, cand, l, capacity, timing), A)
 
 
 def edge_candidates(A: torch.Tensor, pairs: torch.Tensor

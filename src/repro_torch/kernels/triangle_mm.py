@@ -15,11 +15,13 @@ kernel, a CPU tensor to the plain version :func:`triangle_count_tiles_torch`.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
-from .common import (check_tiles, count_call, gt_masks,
-                     triangles_within_chunked, widen)
+from .common import (Timing, check_tiles, count_call, gt_masks,
+                     launch_events, triangles_within_chunked, widen)
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
@@ -39,21 +41,26 @@ def triangle_count_tiles_torch(A: torch.Tensor,
     return triangles_within_chunked(widen(A), widen(cand), gt_masks(T, A.device))
 
 
-def triangle_count_tiles(A: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+def triangle_count_tiles(A: torch.Tensor, cand: torch.Tensor,
+                         timing: Optional[Timing] = None) -> torch.Tensor:
     """(B, T, W) int32, (B, W) int32 -> (B,) int64 per-tile triangle counts
-    (uint32 values, as the reference returns them)."""
+    (uint32 values, as the reference returns them).  On a CUDA tensor,
+    ``timing`` (:func:`~repro_torch.kernels.common.timing_events`) is
+    recorded around the launch."""
     B, T, _ = check_tiles(A, cand)
     if A.device.type == "cpu":
         return triangle_count_tiles_torch(A, cand)
     if A.device.type != "cuda":
         raise ValueError(f"no triangle kernel for device {A.device}")
     out = torch.empty(B, dtype=torch.int64, device=A.device)
+    events = launch_events(timing, 1 if B else 0, A.device)
     if B:
         so = _build.lib()
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = so.triangle_count_tiles_launch(
-                A.data_ptr(), cand.data_ptr(), out.data_ptr(), B, T, stream)
+                A.data_ptr(), cand.data_ptr(), out.data_ptr(), B, T, stream,
+                *events[0])
         if rc:
             raise RuntimeError(f"triangle_count_tiles launch failed: CUDA "
                                f"error {rc}")

@@ -9,15 +9,18 @@ Two facilities:
   (viewable in Perfetto).  torch is imported lazily so this module stays
   at the bottom of the import graph.
 * Kernel attribution -- the dispatchers report the kernel library's build
-  time and per-batch harvest waits here, keyed by kernel signature (op,
-  l, T, B, backend).  ``kernel_records()`` returns the aggregate table;
-  the same numbers flow to the metrics registry as labelled counters.
-  ``execute_s`` is the host's blocked seconds at harvest, not device time:
-  the device time of each kernel is in the :func:`profile_span` capture.
+  time and each harvested batch's kernel time here, keyed by kernel
+  signature (op, l, T, B, backend).  ``kernel_records()`` returns the
+  aggregate table; the same numbers flow to the metrics registry as
+  labelled counters.  On a CUDA lane ``execute_s`` is the device seconds
+  between the CUDA timing events around the batch's kernel calls; on a
+  CPU lane, where the plain version runs inline, it is the host's seconds
+  at harvest.
 
 The port of the reference's ``repro/obs/profile.py``: ``profile_span``
 captures with ``torch.profiler`` where the reference starts
-``jax.profiler``; the attribution functions are copied unchanged.
+``jax.profiler``; the attribution functions are the reference's, with
+what ``execute_s`` holds on each kind of lane.
 """
 
 from __future__ import annotations
@@ -131,7 +134,8 @@ def note_kernel(
     if execute_s:
         reg.counter(
             "repro_kernel_execute_seconds_total",
-            help="device execute/wait time per kernel signature",
+            help="kernel seconds per kernel signature (CUDA event time on "
+                 "a CUDA lane, host time on a CPU lane)",
             sig=sig,
         ).inc(execute_s)
 

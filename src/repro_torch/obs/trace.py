@@ -6,6 +6,12 @@ per thread, tracked via a thread-local stack), carry a monotonic
 ``perf_counter_ns`` clock, and export as Chrome ``trace_event`` JSON that
 Perfetto (https://ui.perfetto.dev) loads directly.
 
+Each finished span also carries ``cpu``: the nanoseconds of CPU time its
+thread used inside it (``time.thread_time_ns``), exported in the Chrome
+event's args in microseconds, as ``dur`` is.  Wall less CPU is the time
+the thread was off the CPU inside the span: waiting for the GIL or a lock,
+blocked in a CUDA call, or descheduled.
+
 Design constraints (see DESIGN.md section 11):
 
 * **Disabled is (almost) free.**  ``span(...)`` with tracing off returns a
@@ -21,11 +27,18 @@ Design constraints (see DESIGN.md section 11):
   ``async_begin`` / ``async_instant`` / ``async_end`` emit Chrome async
   events (``ph`` = ``b``/``n``/``e``) keyed by an explicit id (the serving
   tier uses the ticket id), which Perfetto renders as one track per id.
+* **Device intervals on the spans' clock.**  ``interval`` records an
+  async begin/end pair at explicit timestamps (category ``device``); the
+  dispatchers put each batch's stretch of work on a lane's stream and
+  each kernel call there, timed by CUDA events, one track per lane.  They
+  are async events, not complete ones, so nothing that sums or bills the
+  complete spans of a thread takes them for host work.
 
 Only the standard library is used; this module must not import jax or any
 ``repro`` sibling (it sits below everything else in the import DAG).
 
-The port's copy of the reference's ``repro/obs/trace.py``, unchanged.
+The port of the reference's ``repro/obs/trace.py``; the span's ``cpu``
+and ``interval`` are the port's own.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ __all__ = [
     "async_begin",
     "async_instant",
     "async_end",
+    "interval",
     "enabled",
     "configure",
     "reset",
@@ -61,6 +75,8 @@ _CAT_SYNC = "repro"
 # Category assigned to async (per-request) events.  Chrome async events are
 # matched on (cat, id), so this must be stable.
 _CAT_ASYNC = "request"
+# Category of the device intervals (``interval``), one async id a lane.
+_CAT_DEVICE = "device"
 
 _DEFAULT_CAPACITY = 262_144
 
@@ -86,7 +102,7 @@ _NOOP = _NoopSpan()
 class _Span:
     """An open span; records itself into the tracer on ``__exit__``."""
 
-    __slots__ = ("_tracer", "name", "args", "_t0", "_parent", "_tid")
+    __slots__ = ("_tracer", "name", "args", "_t0", "_c0", "_parent", "_tid")
 
     def __init__(self, tracer: "Tracer", name: str, args: Dict[str, Any]):
         self._tracer = tracer
@@ -105,10 +121,13 @@ class _Span:
         self._parent = stack[-1].name if stack else None
         self._tid = threading.get_ident()
         stack.append(self)
+        # the CPU reads nest inside the wall reads, so cpu <= dur
         self._t0 = time.perf_counter_ns()
+        self._c0 = time.thread_time_ns()
         return self
 
     def __exit__(self, *exc: object) -> bool:
+        c1 = time.thread_time_ns()
         t1 = time.perf_counter_ns()
         tr = self._tracer
         stack = tr._tls.stack
@@ -124,6 +143,7 @@ class _Span:
                 "name": self.name,
                 "ts": self._t0,
                 "dur": t1 - self._t0,
+                "cpu": c1 - self._c0,
                 "tid": self._tid,
                 "parent": self._parent,
                 "args": self.args,
@@ -143,11 +163,12 @@ class Tracer:
 
     # -- recording ---------------------------------------------------------
 
-    def _record(self, ev: Dict[str, Any]) -> None:
+    def _record(self, *evs: Dict[str, Any]) -> None:
         with self._lock:
-            if len(self._events) == self._events.maxlen:
-                self._dropped += 1
-            self._events.append(ev)
+            for ev in evs:
+                if len(self._events) == self._events.maxlen:
+                    self._dropped += 1
+                self._events.append(ev)
 
     def span(self, name: str, **args: Any) -> _Span:
         """Open a nested span; use as ``with tracer.span("pack", T=64):``."""
@@ -202,17 +223,19 @@ class Tracer:
         """Close the async track keyed by ``id``."""
         self._async(name, "e", id, args)
 
+    def interval(self, name: str, id: Any, t0_ns: int, t1_ns: int,
+                 **args: Any) -> None:
+        """Record ``[t0_ns, t1_ns]`` (``perf_counter_ns`` clock) on the
+        device track keyed by ``id``, as an async begin/end pair, the two
+        adjacent in the buffer."""
+        t0 = int(t0_ns)
+        self._record(_async_event(name, "b", id, args, t0, _CAT_DEVICE),
+                     _async_event(name, "e", id, {}, max(t0, int(t1_ns)),
+                                  _CAT_DEVICE))
+
     def _async(self, name: str, ph: str, id: Any, args: Dict[str, Any]) -> None:
-        self._record(
-            {
-                "ph": ph,
-                "name": name,
-                "ts": time.perf_counter_ns(),
-                "tid": threading.get_ident(),
-                "id": str(id),
-                "args": args,
-            }
-        )
+        self._record(_async_event(name, ph, id, args, time.perf_counter_ns(),
+                                  _CAT_ASYNC))
 
     # -- inspection / export -----------------------------------------------
 
@@ -266,8 +289,10 @@ class Tracer:
             if ev["ph"] == "X":
                 rec["cat"] = _CAT_SYNC
                 rec["dur"] = ev["dur"] / 1000.0
+                if "cpu" in ev:
+                    rec["args"]["cpu"] = ev["cpu"] / 1000.0
             elif ev["ph"] in ("b", "n", "e"):
-                rec["cat"] = _CAT_ASYNC
+                rec["cat"] = ev["cat"]
                 rec["id"] = ev["id"]
             else:  # instant
                 rec["cat"] = _CAT_SYNC
@@ -289,6 +314,13 @@ class Tracer:
         """Write the Chrome trace JSON to ``path``."""
         with open(path, "w") as fh:
             json.dump(self.chrome_trace(), fh)
+
+
+def _async_event(name: str, ph: str, id: Any, args: Dict[str, Any], ts: int,
+                 cat: str) -> Dict[str, Any]:
+    """One raw async event (``ph`` = ``b``/``n``/``e``) on track ``id``."""
+    return {"ph": ph, "name": name, "ts": ts, "tid": threading.get_ident(),
+            "id": str(id), "cat": cat, "args": args}
 
 
 def _jsonable(v: Any) -> Any:
@@ -367,6 +399,12 @@ def async_end(name: str, id: Any, **args: Any) -> None:
     """Close an async per-id track; no-op when tracing is disabled."""
     if _ENABLED:
         _TRACER.async_end(name, id, **args)
+
+
+def interval(name: str, id: Any, t0_ns: int, t1_ns: int, **args: Any) -> None:
+    """Record a device interval on track ``id``; no-op when disabled."""
+    if _ENABLED:
+        _TRACER.interval(name, id, t0_ns, t1_ns, **args)
 
 
 def events() -> List[Dict[str, Any]]:

@@ -25,8 +25,9 @@ queue is a placement and staging problem.  A **lane** is one (device,
   ``max_inflight`` batches per lane stay un-harvested, so the host packs
   batch i+1 while the card runs batch i.  Each launch copies its partials
   back with a non-blocking copy on its stream and records a CUDA event
-  behind it; the harvest waits on that event.  The overlapped seconds go
-  to ``Stats.staging_overlap_s``.
+  behind it; the harvest waits on that event.  The device seconds of each
+  batch's lane interval that fall outside the consumer's harvest waits
+  go to ``Stats.staging_overlap_s``.
 
 Counts are exact and invariant to lane count, placement and staging mode:
 every step returns (hard, nv, t, f) partials and the host reduces them in
@@ -38,7 +39,26 @@ the CUDA library's build at first use (``Stats.kernel_compile_s``),
 flops and bytes) and ``combine`` on the counting side; ``device/stage``,
 ``device/sizing``, ``device/wait``, ``device/relist`` and ``decode`` on
 the listing side; ``obs.profile.note_kernel`` for the build and for every
-harvest (``execute_s`` is the host's blocked seconds, not device time).
+harvest.  The port adds children of ``device/stage`` that split the
+consumer's work before a launch: ``stage/place`` (the lane's choice),
+``stage/copy`` (pinning and the copies to the lane) and ``count/step`` or
+``list/step`` (the enqueue of the count step, the sizing pass or the list
+kernel, and its copy back; ``list/step`` also outside it, where a pending
+batch's list kernel is launched).
+
+On a CUDA lane every batch records timing events (:class:`LaneEvents`),
+whether tracing is on or not: a mark before its staging copy, a pair
+that the kernel library records around each kernel call's launches, and
+the event behind its copy back, which the harvest waits on anyway.  They
+are read after that wait, so nothing waits for them.  The kernel pairs
+give ``Stats.kernel_device_s``, ``note_kernel``'s ``execute_s`` (on a CPU
+lane, where the plain version runs inline, it stays the host's seconds)
+and, with ``stage_times``, ``count_tiles_T<T>``; the lane intervals give
+``staging_overlap_s``.
+With tracing on, both go to the trace on one track per lane
+(``lane/batch``, ``lane/kernel``; :func:`repro_torch.obs.trace.interval`).
+The listing consumer's seconds blocked on the decode backlog go to
+``Stats.decode_backlog_s``.
 
 Resilience, as in the reference, with two deliberate differences.  The
 ``device.stage`` and ``kernel.launch`` fault sites fire before every
@@ -86,6 +106,7 @@ from ..core import engine_torch, listing, pipeline
 from ..core.engine_np import Stats
 from ..core.engine_np import count_rec_C
 from ..kernels import ops as kops
+from ..kernels.common import Timing, timing_events
 from ..obs import profile as obs_profile
 from ..obs import trace
 from ..resilience import inject
@@ -168,13 +189,34 @@ class Lane:
 
     A CUDA lane owns a ``torch.cuda.Stream`` of its own, so two lanes on
     one card run concurrently; a CPU lane has none, and its work runs
-    inline when it is launched.
+    inline when it is launched.  A CUDA lane records an anchor event on
+    its fresh, idle stream when it is built and polls it until it has
+    completed; the event's time on the host's ``perf_counter_ns`` clock
+    lies between the reads before its record and after the poll, and the
+    narrowest of three such windows gives it (its midpoint).  Every later
+    timing event on the lane then has a time on the clock of the
+    program's spans (:meth:`clock_ns`).
     """
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, name: str = "lane"):
         self.device = device
+        self.name = name
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
+        # kernel timing pairs read and free for reuse: their CUDA events
+        # exist, so the kernel library can record them by handle
+        self._free: Deque[Timing] = collections.deque()
+        if self.stream is not None:
+            windows = []
+            for _ in range(3):
+                event = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter_ns()
+                event.record(self.stream)
+                while not event.query():
+                    pass
+                windows.append((time.perf_counter_ns() - t0, t0, event))
+            width, t0, self._anchor = min(windows, key=lambda w: w[0])
+            self._anchor_ns = t0 + width // 2
 
     def context(self):
         """Make this lane's device and stream current for the calling
@@ -187,9 +229,33 @@ class Lane:
         stack.enter_context(torch.cuda.stream(self.stream))
         return stack
 
+    def mark(self, blocking: bool = False) -> torch.cuda.Event:
+        """Record a timing event on this lane's stream (CUDA lanes only)."""
+        event = torch.cuda.Event(enable_timing=True, blocking=blocking)
+        event.record(self.stream)
+        return event
+
+    def timing(self) -> Timing:
+        """A pair of timing events for one kernel call on this lane: one
+        given back by :meth:`release`, else a new one."""
+        try:
+            return self._free.popleft()
+        except IndexError:
+            return timing_events(self.stream)
+
+    def release(self, pairs) -> None:
+        """Take back timing pairs whose times have been read."""
+        self._free.extend(pairs)
+
+    def clock_ns(self, event: torch.cuda.Event) -> int:
+        """The ``perf_counter_ns`` time at which the stream passed
+        ``event``, which must have completed."""
+        return self._anchor_ns + round(
+            self._anchor.elapsed_time(event) * 1e6)
+
     def to_host(self, tensors) -> Tuple[Optional[torch.cuda.Event], tuple]:
         """Copy ``tensors`` back to the host without blocking, on this
-        lane's stream, and record an event behind the copies.
+        lane's stream, and record a timing event behind the copies.
 
         Returns (event, host tensors); the host tensors (pinned) hold the
         values once the event has completed.  On the CPU the tensors are
@@ -201,9 +267,92 @@ class Lane:
             return None, tuple(tensors)
         with self.context():
             host = tuple(x.to("cpu", non_blocking=True) for x in tensors)
-            event = torch.cuda.Event(blocking=True)
-            event.record(self.stream)
+            event = self.mark(blocking=True)
         return event, host
+
+
+class LaneEvents:
+    """The timing events of one batch on a CUDA lane.
+
+    ``spans`` are (start, done) stretches of the batch's work on the
+    lane's stream: from a mark before its staging copy (or before a later
+    launch) to the event behind that launch's copy back.  ``kernels`` maps
+    a kernel's name ("count", "list") to the timing pairs that the kernel
+    library recorded around that kernel's launches (:func:`_timed`).
+    Everything is read after the wait on the last ``done`` that the
+    dispatcher makes anyway, so reading them never blocks.  Beyond the
+    copy back's event, a batch costs one event record from the host, the
+    mark; the kernel pairs are recorded inside the launch calls.
+    """
+
+    def __init__(self, lane: Lane):
+        self.lane = lane
+        self.spans: List[list] = []
+        self.kernels = collections.defaultdict(list)
+
+    def open(self) -> None:
+        """Mark the start of a stretch of this batch's work on the lane."""
+        self.spans.append([self.lane.mark(), None])
+
+    def close(self, done: torch.cuda.Event) -> None:
+        """End the open stretch at ``done``, the event behind a copy back."""
+        self.spans[-1][1] = done
+
+    @property
+    def done(self) -> torch.cuda.Event:
+        """The event behind the batch's last copy back so far."""
+        return self.spans[-1][1]
+
+    def kernel_s(self, name: Optional[str] = None) -> float:
+        """Device seconds between the timing pairs of the kernel calls (of
+        ``name`` only, if given)."""
+        pairs = (self.kernels[name] if name is not None
+                 else itertools.chain(*self.kernels.values()))
+        return sum(s.elapsed_time(e) for s, e in pairs) / 1e3
+
+    def intervals_ns(self) -> List[Tuple[int, int]]:
+        """The closed stretches of work on the spans' clock."""
+        return [(self.lane.clock_ns(s), self.lane.clock_ns(e))
+                for s, e in self.spans if e is not None]
+
+    def finish(self, **args) -> None:
+        """Put the stretches (``lane/batch``) and the kernel calls
+        (``lane/kernel``) on the lane's track of the trace, when tracing
+        is on; then give the kernel pairs back to the lane."""
+        if trace.enabled():
+            clock = self.lane.clock_ns
+            for t0, t1 in self.intervals_ns():
+                trace.interval("lane/batch", self.lane.name, t0, t1, **args)
+            for name, pairs in self.kernels.items():
+                for s, e in pairs:
+                    trace.interval("lane/kernel", self.lane.name, clock(s),
+                                   clock(e), kernel=name)
+        for pairs in self.kernels.values():
+            self.lane.release(pairs)
+        self.kernels.clear()
+
+
+def _timed(events: Optional[LaneEvents], name: str, call):
+    """``call(timing)`` for a kernel call of ``name``: on a CUDA lane with a
+    timing pair of the lane, which joins ``events``' pairs of ``name`` once
+    the call has returned (a call that raised leaves none behind); with
+    None on a CPU lane."""
+    if events is None:
+        return call(None)
+    pair = events.lane.timing()
+    out = call(pair)
+    events.kernels[name].append(pair)
+    return out
+
+
+def _outside_ns(intervals, waits) -> int:
+    """Nanoseconds of ``intervals`` outside the disjoint ``waits``."""
+    total = 0
+    for a, b in intervals:
+        total += b - a
+        for w0, w1 in waits:
+            total -= max(0, min(b, w1) - max(a, w0))
+    return total
 
 
 def _is_ready(event) -> bool:
@@ -284,7 +433,7 @@ class _Lanes:
             raise ValueError("dispatch requires l >= 1 (k >= 3)")
         self.l = l
         self.devices = devices
-        self.lanes = [Lane(d) for d in devices]
+        self.lanes = [Lane(d, f"lane{i} {d}") for i, d in enumerate(devices)]
         self.stats = stats
         self.stats.backend = "torch:" + "+".join(
             sorted({d.type for d in devices}))
@@ -374,7 +523,7 @@ class _Lanes:
 @dataclasses.dataclass
 class _InFlight:
     """One staged batch awaiting harvest: its host partials (one tuple a
-    shard) and the events behind their copies back."""
+    shard) and each shard's :class:`LaneEvents` (None on a CPU lane)."""
 
     device: int  # lane index; -1 for the row-sharded path
     events: list
@@ -382,6 +531,7 @@ class _InFlight:
     rows: int = 0  # un-padded batch rows (slice bound for routed harvest)
     route: object = None  # per-request delivery callback, or None
     T: int = 0  # tile width (kernel-signature attribution)
+    submitted_ns: int = 0  # perf_counter_ns when its staging began
 
 
 class Dispatcher(_Lanes):
@@ -427,20 +577,31 @@ class Dispatcher(_Lanes):
         self.stage_times = stage_times
         self.total = 0
         self._inflight: Deque[_InFlight] = collections.deque()
-        self._overlap_mark = 0.0
+        # the consumer's harvest waits (perf_counter_ns) that an in-flight
+        # batch's lane interval may still overlap
+        self._waits: Deque[Tuple[int, int]] = collections.deque()
 
     def _launch(self, A: np.ndarray, cand: np.ndarray, lane: Lane):
         """Stage one (shard of a) batch on ``lane``, launch its count step
-        and its copy back; returns (event, host partials).  Fires the
-        ``device.stage`` and ``kernel.launch`` fault sites."""
-        with lane.context():
+        and its copy back; returns (:class:`LaneEvents` or None on a CPU
+        lane, host partials).  Fires the ``device.stage`` and
+        ``kernel.launch`` fault sites."""
+        events = LaneEvents(lane) if lane.stream is not None else None
+        with trace.span("stage/copy"), lane.context():
             inject.fire("device.stage")
+            if events is not None:
+                events.open()
             tA, tc = batch_to_torch(A, cand, lane.device)
+        with trace.span("count/step"), lane.context():
             inject.fire("kernel.launch")
-            out = engine_torch.count_packed(tA, tc, self.l,
-                                            method=self.method, et=self.et,
-                                            backend=self.backend)
-            return lane.to_host(out)
+            out = _timed(events, "count", lambda timing:
+                         engine_torch.count_packed(
+                             tA, tc, self.l, method=self.method, et=self.et,
+                             backend=self.backend, timing=timing))
+            done, host = lane.to_host(out)
+        if events is not None:
+            events.close(done)
+        return events, host
 
     def _host_partials(self, batch: pipeline.TileBatch):
         """Count ``batch`` on the host recursion (a CPU lane's last rung).
@@ -485,6 +646,7 @@ class Dispatcher(_Lanes):
         retried in place (:meth:`_Lanes._run`; a row-sharded batch as a
         whole), so the batch keeps its FIFO position.
         """
+        submitted_ns = time.perf_counter_ns()
         with trace.span("device/stage", B=batch.B, T=batch.T):
             self._build_once(batch)
             if self.mesh is not None:
@@ -512,7 +674,8 @@ class Dispatcher(_Lanes):
                     minlength=n,
                 )
             else:
-                d = self._place(batch, device)
+                with trace.span("stage/place"):
+                    d = self._place(batch, device)
                 lane = self.lanes[d]
                 event, host = self._run(
                     lane.stream is not None, "count",
@@ -525,11 +688,8 @@ class Dispatcher(_Lanes):
         self.placements.append(d)
         self.tiles += batch.B
         _account_devices(self.stats, per_dev, batch.T)
-        if not self._inflight:
-            # in-flight window (re)opens now; overlap accrues from here
-            self._overlap_mark = time.perf_counter()
         self._inflight.append(_InFlight(d, events, parts, batch.B, route,
-                                        batch.T))
+                                        batch.T, submitted_ns))
         if not self.async_staging:
             self._drain()
         else:
@@ -538,13 +698,7 @@ class Dispatcher(_Lanes):
 
     def _harvest_one(self) -> None:
         p = self._inflight.popleft()
-        t0 = time.perf_counter()
-        # wall time since the last accounting mark during which work was in
-        # flight and the host was free (packing / combining, not blocked):
-        # an upper bound on the device execution hidden behind host work.
-        # Synchronous staging hides nothing by construction.
-        if self.async_staging:
-            self.stats.staging_overlap_s += max(0.0, t0 - self._overlap_mark)
+        t0 = time.perf_counter_ns()
         sig = self._sig(p.rows, p.T)
         flops, nbytes = batch_flops(p.rows, p.T), batch_bytes(p.rows, p.T)
         with trace.span("device/harvest", device=p.device, sig=sig,
@@ -552,14 +706,17 @@ class Dispatcher(_Lanes):
             # an injected harvest fault is pure (the staged result still
             # exists) and is absorbed in place; a real wait failure raises
             fault_retry.consume("device.harvest", on_retry=self._note_retry)
-            for event in p.events:
-                _wait(event)
+            for ev in p.events:
+                _wait(None if ev is None else ev.done)
             out = [np.concatenate([np.asarray(part[i]) for part in p.parts])
                    for i in range(4)]
-        t1 = time.perf_counter()
-        obs_profile.note_kernel(sig, execute_s=t1 - t0, calls=1, flops=flops,
-                                nbytes=nbytes)
-        self._overlap_mark = t1  # blocked interval [t0, t1] is not overlap
+        t1 = time.perf_counter_ns()
+        execute_s = (t1 - t0) / 1e9  # a CPU lane ran the batch inline
+        timed = [ev for ev in p.events if ev is not None]
+        if timed:
+            execute_s = self._account_events(p, timed, (t0, t1))
+        obs_profile.note_kernel(sig, execute_s=execute_s, calls=1,
+                                flops=flops, nbytes=nbytes)
         with trace.span("combine", routed=p.route is not None):
             if p.route is None:
                 self.total += engine_torch.combine_counts(*out, self.l,
@@ -567,11 +724,38 @@ class Dispatcher(_Lanes):
             else:
                 # padding appends rows, so a head slice removes it
                 p.route(*(x[: p.rows].astype(np.int64) for x in out))
-        t2 = time.perf_counter()
+        t2 = time.perf_counter_ns()
         if self.stage_times is not None:
             st = self.stage_times
-            st["device"] = st.get("device", 0.0) + (t1 - t0)
-            st["combine"] = st.get("combine", 0.0) + (t2 - t1)
+            st["device"] = st.get("device", 0.0) + (t1 - t0) / 1e9
+            st["combine"] = st.get("combine", 0.0) + (t2 - t1) / 1e9
+
+    def _account_events(self, p: _InFlight, timed: List[LaneEvents],
+                        wait: Tuple[int, int]) -> float:
+        """Fold a harvested batch's CUDA events into the accounts; returns
+        its kernel seconds.
+
+        ``Stats.kernel_device_s`` and ``stage_times["count_tiles_T<T>"]``
+        get the device seconds of the kernel pairs;
+        ``Stats.staging_overlap_s`` the device seconds of the batch's lane
+        intervals that fell outside the consumer's harvest waits (``wait``
+        is this one, on the ``perf_counter_ns`` clock)."""
+        self._waits.append(wait)
+        oldest = min([p.submitted_ns] + [q.submitted_ns
+                                         for q in self._inflight])
+        while self._waits and self._waits[0][1] < oldest:
+            self._waits.popleft()
+        kernel_s = sum(ev.kernel_s() for ev in timed)
+        self.stats.kernel_device_s += kernel_s
+        self.stats.staging_overlap_s += sum(
+            _outside_ns(ev.intervals_ns(), self._waits)
+            for ev in timed) / 1e9
+        if self.stage_times is not None:
+            key = f"count_tiles_T{p.T}"
+            self.stage_times[key] = self.stage_times.get(key, 0.0) + kernel_s
+        for ev in timed:
+            ev.finish(B=p.rows, T=p.T)
+        return kernel_s
 
     def _drain(self) -> None:
         while self._inflight:
@@ -710,31 +894,49 @@ class ListDispatcher(_Lanes):
                 st = self.stage_times
                 st[key] = st.get(key, 0) + amount
 
-    def _stage(self, batch: pipeline.TileBatch, lane: Lane):
-        """Fire the stage site and copy the batch onto ``lane``."""
-        inject.fire("device.stage")
-        with lane.context():
+    def _stage(self, batch: pipeline.TileBatch, lane: Lane,
+               events: Optional[LaneEvents]):
+        """Fire the stage site and copy the batch onto ``lane``; ``events``
+        (a CUDA lane's) gets a mark before the copy."""
+        with trace.span("stage/copy"), lane.context():
+            inject.fire("device.stage")
+            if events is not None:
+                events.open()
             return batch_to_torch(batch.A, batch.cand, lane.device)
 
-    def _count_pass(self, lane: Lane, A: torch.Tensor, cand: torch.Tensor):
+    def _count_pass(self, lane: Lane, A: torch.Tensor, cand: torch.Tensor,
+                    events: Optional[LaneEvents]):
         """Fire the launch site and start the sizing count pass, with the
-        copy of its counts back; returns (event, (host counts,))."""
-        inject.fire("kernel.launch")
-        with lane.context():
-            return lane.to_host((kops.count_tiles(A, cand, self.l,
-                                                  backend=self.backend),))
+        copy of its counts back; returns (event, (host counts,)).  The
+        stretch of ``events`` opened by the staging copy ends behind it."""
+        with trace.span("list/step"), lane.context():
+            inject.fire("kernel.launch")
+            hard = _timed(events, "count", lambda timing: kops.count_tiles(
+                A, cand, self.l, backend=self.backend, timing=timing))
+            event, host = lane.to_host((hard,))
+        if events is not None:
+            events.close(event)
+        return event, host
 
     def _list(self, lane: Lane, A: torch.Tensor, cand: torch.Tensor,
-              cap: int):
+              cap: int, events: Optional[LaneEvents]):
         """Fire the launch site, launch one list kernel at capacity ``cap``
         on ``lane`` and the copy of its triple back; returns (event, host
         triple).  Called by the consumer thread and, for the speculative
         retry, the decode worker: either way inside the lane's device and
-        stream."""
-        inject.fire("kernel.launch")
-        with lane.context():
-            return lane.to_host(kops.list_tiles(A, cand, self.l, cap,
-                                                backend=self.backend))
+        stream.  ``events`` gets the launch as a stretch of its own, unless
+        the staging copy's is still open (no sizing pass before it)."""
+        with trace.span("list/step"), lane.context():
+            inject.fire("kernel.launch")
+            if events is not None and (not events.spans
+                                       or events.spans[-1][1] is not None):
+                events.open()
+            triple = _timed(events, "list", lambda timing: kops.list_tiles(
+                A, cand, self.l, cap, backend=self.backend, timing=timing))
+            event, host = lane.to_host(triple)
+        if events is not None:
+            events.close(event)
+        return event, host
 
     def _host_list(self, batch: pipeline.TileBatch):
         """A CPU lane's host rung: (no event, the batch's triple from
@@ -743,11 +945,11 @@ class ListDispatcher(_Lanes):
         return None, listing.host_list_triple(batch, self.l)
 
     def _launch_list(self, batch: pipeline.TileBatch, lane: Lane,
-                     acand: tuple, cap: int):
+                     acand: tuple, cap: int, events: Optional[LaneEvents]):
         """One list launch on the staged (A, cand) ``acand``; returns
         (event, triple)."""
         return self._run(lane.stream is not None, "list",
-                         lambda: self._list(lane, *acand, cap),
+                         lambda: self._list(lane, *acand, cap, events),
                          lambda: self._host_list(batch), "list.launch")
 
     def submit(
@@ -777,7 +979,8 @@ class ListDispatcher(_Lanes):
                              "batch route callbacks)")
         with trace.span("device/stage", B=batch.B, T=batch.T):
             self._build_once(batch)
-            d = self._place(batch, device)
+            with trace.span("stage/place"):
+                d = self._place(batch, device)
             self.placements.append(d)
             self.tiles += batch.B
             per_dev = np.zeros(self.n_devices, dtype=np.int64)
@@ -786,20 +989,22 @@ class ListDispatcher(_Lanes):
                 _account_devices(self.stats, per_dev, batch.T)
             lane = self.lanes[d]
             on_card = lane.stream is not None
+            events = LaneEvents(lane) if on_card else None
             # None: a CPU lane's staging (or sizing) gave up, and the host
             # lists the batch in its FIFO slot
             acand = self._run(on_card, "list",
-                              lambda: self._stage(batch, lane), lambda: None,
-                              "list.stage")
+                              lambda: self._stage(batch, lane, events),
+                              lambda: None, "list.stage")
             if self.capacity is None or self.capacity == "sized":
                 # async count pass; readiness is probed at promotion time
                 staged = None
                 if acand is not None:
                     staged = self._run(
                         on_card, "count",
-                        lambda: (acand, self._count_pass(lane, *acand)),
+                        lambda: (acand, self._count_pass(lane, *acand,
+                                                         events)),
                         lambda: None, "list.sizing")
-                self._pending.append((d, batch, staged, route))
+                self._pending.append((d, batch, staged, route, events))
             else:
                 if self.capacity == "speculative":  # ratchet guess
                     cap = min(self._cap_ratchet.get(batch.T,
@@ -808,8 +1013,9 @@ class ListDispatcher(_Lanes):
                 else:
                     cap = max(1, int(self.capacity))
                 out = (self._host_list(batch) if acand is None
-                       else self._launch_list(batch, lane, acand, cap))
-                self._inflight.append((d, batch, acand, out, route))
+                       else self._launch_list(batch, lane, acand, cap,
+                                              events))
+                self._inflight.append((d, batch, acand, out, route, events))
         self._promote(block=False)
         if not self.async_staging:
             self._drain()
@@ -830,11 +1036,11 @@ class ListDispatcher(_Lanes):
         through (used when the harvest side runs dry).
         """
         while self._pending:
-            d, batch, staged, route = self._pending[0]
+            d, batch, staged, route, events = self._pending[0]
             if staged is None:
                 self._pending.popleft()
                 self._inflight.append((d, batch, None,
-                                       self._host_list(batch), route))
+                                       self._host_list(batch), route, None))
                 block = False
                 continue
             acand, (event, (hard,)) = staged
@@ -848,12 +1054,13 @@ class ListDispatcher(_Lanes):
             self._pending.popleft()
             cap = listing.capacity_for(counts, self.max_capacity,
                                        policy=self.cap_policy)
-            out = self._launch_list(batch, self.lanes[d], acand, cap)
-            self._inflight.append((d, batch, acand, out, route))
+            out = self._launch_list(batch, self.lanes[d], acand, cap, events)
+            self._inflight.append((d, batch, acand, out, route, events))
             block = False  # only the head is ever forced
 
     def _decode_job(self, d: int, batch: pipeline.TileBatch, acand: tuple,
-                    out: tuple, route=None) -> None:
+                    out: tuple, route=None,
+                    events: Optional[LaneEvents] = None) -> None:
         """Run one decode job on the decode worker.
 
         Waits for the triple's copy back, retries a too-small speculative
@@ -862,7 +1069,9 @@ class ListDispatcher(_Lanes):
         triple to the batch's ``route``.  Only this thread touches the
         sink, ``overflowed_tiles`` and ``emitted_cliques``' rows, so FIFO
         submission is deterministic sink order with no further
-        synchronization."""
+        synchronization.  On a CUDA lane the batch's kernel pairs
+        (``events``), complete once its triple's copy back is, go to
+        ``Stats.kernel_device_s`` and the trace's lane track."""
         t0 = time.perf_counter()
         sig = self._sig(batch.B, batch.T)
         flops = batch_flops(batch.B, batch.T)
@@ -888,14 +1097,20 @@ class ListDispatcher(_Lanes):
                 with trace.span("device/relist", B=batch.B, T=batch.T,
                                 capacity=true_cap):
                     event, triple = self._launch_list(
-                        batch, self.lanes[d], acand, true_cap)
+                        batch, self.lanes[d], acand, true_cap, events)
                     _wait(event)
                     bufs, cnt, ovf = (np.asarray(x) for x in triple)
                 with self._acct_lock:
                     self.stats.emit_retries += 1
         t1 = time.perf_counter()
-        obs_profile.note_kernel(sig, execute_s=t1 - t0, calls=1, flops=flops,
-                                nbytes=nbytes)
+        execute_s = t1 - t0  # a CPU lane ran the batch inline
+        if events is not None:
+            execute_s = events.kernel_s("list")
+            with self._acct_lock:
+                self.stats.kernel_device_s += events.kernel_s()
+            events.finish(B=batch.B, T=batch.T)
+        obs_profile.note_kernel(sig, execute_s=execute_s, calls=1,
+                                flops=flops, nbytes=nbytes)
         relist: dict = {}
         fault_retry.consume("decode", on_retry=self._note_retry)
         with trace.span("decode", B=batch.B, T=batch.T,
@@ -935,24 +1150,35 @@ class ListDispatcher(_Lanes):
     def _harvest_one(self) -> None:
         if not self._inflight:
             self._promote(block=True)
-        d, batch, acand, out, route = self._inflight.popleft()
+        d, batch, acand, out, route, events = self._inflight.popleft()
         # decode + emit run on the decode worker, overlapping device
         # execution AND this thread's submit/promote work
         self._decoding.append(
             self._decode_ex.submit(self._decode_job, d, batch, acand, out,
-                                   route)
+                                   route, events)
         )
         # promote any counts that landed meanwhile, then bound the decode
         # backlog (it holds references to device buffers)
         self._promote(block=False)
-        while len(self._decoding) > self._decode_depth:
+        self._await_decodes(self._decode_depth)
+
+    def _await_decodes(self, depth: int) -> None:
+        """Block until at most ``depth`` decode jobs are queued; the
+        seconds blocked go to ``Stats.decode_backlog_s``.  Deliberately
+        no span: under the benchmark's billing of idle gaps it would take
+        the idle away from the worker's spans that cause it."""
+        if len(self._decoding) <= depth:
+            return
+        t0 = time.perf_counter()
+        while len(self._decoding) > depth:
             self._decoding.popleft().result()
+        with self._acct_lock:
+            self.stats.decode_backlog_s += time.perf_counter() - t0
 
     def _drain(self) -> None:
         while self._pending or self._inflight:
             self._harvest_one()
-        while self._decoding:
-            self._decoding.popleft().result()
+        self._await_decodes(0)
 
     def consume(self, stream, on_spill=None) -> Tuple[int, int]:
         """Emit-mode twin of :meth:`Dispatcher.consume`.

@@ -347,6 +347,14 @@ def test_consume_drives_both_dispatchers():
     assert ldisp.finish() == sink.accepted == ref
 
 
+def test_overlap_is_lane_time_outside_the_harvest_waits():
+    # lane intervals against the consumer's (disjoint) harvest waits, ns
+    assert dsp._outside_ns([(0, 100)], []) == 100
+    assert dsp._outside_ns([(0, 100)], [(20, 30), (90, 150)]) == 80
+    assert dsp._outside_ns([(0, 10), (50, 60)], [(5, 55)]) == 10
+    assert dsp._outside_ns([(10, 20)], [(0, 100)]) == 0
+
+
 def test_stats_merge_classifies_every_field(monkeypatch):
     names = {f.name for f in dataclasses.fields(Stats)}
     assert names == set(Stats._MERGE_KINDS)

@@ -633,6 +633,43 @@ def test_list_batch_past_the_per_x_budget(cuda):
         assert torch.equal(x.cpu(), y)
 
 
+def test_timing_pair_brackets_every_launch(cuda):
+    """A wrapper's ``timing`` pair spans all of its launches: the kernel
+    library records the start before the first launch and the end behind
+    the last, so the pair's elapsed time holds every kernel the profiler
+    saw in the call (two launches each for count and list here).  With no
+    launch (l > T) the pair is recorded at once and brackets nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.common import timing_events
+    B = clique_count.LAUNCH_TILES + 3
+    A, cand = _small_tiles(B, B, 32)
+    tA, tc = A.to(cuda), cand.to(cuda)
+    calls = {
+        "count": lambda t: clique_count.clique_count_tiles(tA, tc, 4, t),
+        "list": lambda t: clique_list.clique_list_tiles(tA, tc, 4, 4, t),
+        "triangle": lambda t: triangle_mm.triangle_count_tiles(tA, tc, t),
+    }
+    on_dev = torch.autograd.DeviceType.CUDA
+    for name, call in calls.items():
+        call(None)  # the library and the allocator's blocks
+        torch.cuda.synchronize()
+        pair = timing_events()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call(pair)
+            torch.cuda.synchronize()
+        kernels = [e.duration_ns() for e in prof.profiler.kineto_results
+                   .events() if e.device_type() == on_dev
+                   and _kernel_name(e.name()) in PORT_KERNELS]
+        elapsed_ms = pair[0].elapsed_time(pair[1])
+        print(f"{name}: {len(kernels)} kernels, {sum(kernels) / 1e6:.4f} "
+              f"ms; pair {elapsed_ms:.4f} ms")
+        assert kernels and elapsed_ms >= sum(kernels) / 1e6, name
+    pair = timing_events()
+    clique_count.clique_count_tiles(tA, tc, 33, pair)
+    torch.cuda.synchronize()
+    assert 0.0 <= pair[0].elapsed_time(pair[1]) < 0.5
+
+
 # ---------------------------------------------------------------------------
 # tile widths that are multiples of 32 but not powers of two (ROADMAP C3)
 # ---------------------------------------------------------------------------
@@ -1446,3 +1483,120 @@ def test_lm_cells_on_nccl_mesh_equal_unsharded(nccl_mesh, arch, shape):
     want = plain.step_fn(*args())
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         assert a.is_cuda and torch.equal(a, b)
+
+
+#: the port's own kernels, as the profiler names them (template and
+#: argument lists cut)
+PORT_KERNELS = {"branch_kernel", "item_kernel", "branch_wide", "item_wide",
+                "list_emit_kernel", "list_scan_kernel", "list_emit_wide",
+                "tri_warp_rows", "tri_block_rows", "tri_wide"}
+
+
+def _kernel_name(name):
+    name = name.replace("(anonymous namespace)", "")
+    name = name.split("(")[0].split("<")[0].strip()
+    return name.rsplit("::", 1)[-1].removeprefix("void ").strip()
+
+
+def test_lane_track_kernels_match_the_profiler(cuda):
+    """The dispatchers' kernel pairs, put on the spans' clock by each
+    lane's anchor, against the profiler's kernels: each pair's ends lie
+    within 0.2 ms of the first and the last of the port's kernels it
+    brackets, and ``Stats.kernel_device_s`` is at least their summed
+    device time.
+
+    The profiler's clock is tied to ``perf_counter`` by a runtime call
+    that the host times: a CUDA event's record between two
+    ``perf_counter`` reads, which the profiler records on the clock of its
+    kernels.  The benchmark's tie, the start of a ``record_function``
+    marker on the clock of the profiler's ops, is printed beside it; the
+    two clocks disagree by a fraction of a millisecond on the card's host,
+    more than this test's tolerance."""
+    import bisect
+    import time
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.obs import trace
+    g = graphs.rmat_graph(10, edge_factor=8, seed=7)
+    kw = {"devices": ["cuda:0"], "pack_workers": 0}
+
+    def queries():
+        res = ebbkc.count(g, 6, engine_kwargs=kw)
+        rows, lstats = ebbkc.list_cliques(
+            g, 5, engine_kwargs=dict(kw, async_staging=False))
+        return res.stats.kernel_device_s + lstats.kernel_device_s
+
+    queries()  # the library, the plan and the allocator's blocks
+    tie = torch.cuda.Event()
+    tie.record()  # created before the profile, so its window holds one call
+    trace.configure(enabled=True)
+    trace.reset()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        torch.cuda.synchronize()
+        tie_a = time.perf_counter_ns()
+        tie.record()
+        tie_b = time.perf_counter_ns()
+        mark_ns = time.perf_counter_ns()
+        with record_function("test/window"):
+            kernel_device_s = queries()
+            torch.cuda.synchronize()
+    finally:
+        prof.stop()
+        evs = trace.events()
+        trace.configure(enabled=False)
+        trace.reset()
+    on_dev = torch.autograd.DeviceType.CUDA
+    kin = prof.profiler.kineto_results.events()
+    (mark,) = [e for e in kin if e.name() == "test/window"
+               and e.device_type() != on_dev]
+    # the first event record after the start is the tie's; its call lies
+    # inside [tie_a, tie_b], centred
+    rec = min((e for e in kin if e.device_type() != on_dev
+               and e.name().startswith("cudaEventRecord")),
+              key=lambda e: e.start_ns())
+    shift = tie_a - rec.start_ns() + (tie_b - tie_a - rec.duration_ns()) // 2
+    print(f"tie: the record call {rec.duration_ns() / 1e3:.1f} us inside a "
+          f"host window of {(tie_b - tie_a) / 1e3:.1f} us; the marker's tie "
+          f"differs by {(mark_ns - mark.start_ns() - shift) / 1e3:.1f} us")
+    dev = sorted((e.start_ns() + shift, e.start_ns() + shift + e.duration_ns())
+                 for e in kin if e.device_type() == on_dev
+                 and _kernel_name(e.name()) in PORT_KERNELS)
+    opened, brackets = {}, []
+    for ev in evs:
+        if ev["name"] == "lane/kernel" and ev["ph"] == "b":
+            opened[ev["id"]] = (ev["ts"], ev["args"]["kernel"])
+        elif ev["name"] == "lane/kernel" and ev["ph"] == "e":
+            t0, name = opened.pop(ev["id"])
+            brackets.append((t0, ev["ts"], name))
+    brackets.sort()
+    assert dev and brackets
+    # each kernel to the pair nearest its midpoint
+    starts = [k0 for k0, _, _ in brackets]
+    groups = {}
+    for a, b in dev:
+        mid = (a + b) / 2
+        i = bisect.bisect_right(starts, mid) - 1
+        near = min((j for j in (i, i + 1) if 0 <= j < len(brackets)),
+                   key=lambda j: max(brackets[j][0] - mid,
+                                     mid - brackets[j][1], 0))
+        groups.setdefault(near, []).append((a, b))
+    rows = sorted((min(a for a, _ in ks) - brackets[j][0],
+                   brackets[j][1] - max(b for _, b in ks), brackets[j][2],
+                   len(ks), j) for j, ks in groups.items())
+    head = sorted(r[0] for r in rows)
+    tail = sorted(r[1] for r in rows)
+    print(f"{len(brackets)} pairs, {len(dev)} kernels; pair start to first "
+          f"kernel {head[0] / 1e3:.1f}..{head[len(head) // 2] / 1e3:.1f}.."
+          f"{head[-1] / 1e3:.1f} us (min..median..max), last kernel to pair "
+          f"end {tail[0] / 1e3:.1f}..{tail[len(tail) // 2] / 1e3:.1f}.."
+          f"{tail[-1] / 1e3:.1f} us")
+    for h, t, name, n, j in sorted(rows, key=lambda r: -max(abs(r[0]),
+                                                            abs(r[1])))[:4]:
+        print(f"  pair {j} ({name}, {n} kernels): start {h / 1e3:.1f} us, "
+              f"end {t / 1e3:.1f} us")
+    assert all(abs(x) <= 200_000 for x in head + tail)
+    summed = sum(b - a for a, b in dev) / 1e9
+    print(f"kernel_device_s {kernel_device_s:.6f} s, the profiler's "
+          f"kernels {summed:.6f} s")
+    assert kernel_device_s >= summed

@@ -174,10 +174,10 @@ def test_count_tiles_routes_like_reference(monkeypatch, method, l, kernel):
     calls = []
     ref_oracle = ref.clique_count_tiles_ref
     monkeypatch.setattr(ops._tm, "triangle_count_tiles",
-                        lambda A, c: calls.append("triangle") or
+                        lambda A, c, timing=None: calls.append("triangle") or
                         triangle_mm.triangle_count_tiles_torch(A, c))
     monkeypatch.setattr(ops._cc, "clique_count_tiles",
-                        lambda A, c, ll: calls.append("dfs") or
+                        lambda A, c, ll, timing=None: calls.append("dfs") or
                         clique_count.clique_count_tiles_torch(A, c, ll))
     monkeypatch.setattr(ops._ref, "clique_count_tiles_ref",
                         lambda A, c, ll: calls.append("ref") or

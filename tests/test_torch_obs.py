@@ -72,10 +72,42 @@ def test_spans_nest_and_validate(tracer):
     doc = trace.chrome_trace()
     assert trace.validate_chrome_trace(doc) == []
     by_name = {e["name"]: e for e in doc["traceEvents"] if e.get("ph") == "X"}
-    assert by_name["inner"]["args"] == {"y": 2}
+    # the user's attributes, and the span's thread-CPU microseconds
+    args = dict(by_name["inner"]["args"])
+    assert 0 <= args.pop("cpu") and args == {"y": 2}
     # inner lies within outer
     o, i = by_name["outer"], by_name["inner"]
     assert o["ts"] <= i["ts"] and i["ts"] + i["dur"] <= o["ts"] + o["dur"]
+
+
+def test_span_cpu_time_tells_waiting_from_working(tracer):
+    with trace.span("sleep"):
+        time.sleep(0.05)
+    with trace.span("busy"):
+        c0 = time.thread_time_ns()
+        while time.thread_time_ns() - c0 < 20_000_000:
+            pass
+    ev = {e["name"]: e for e in trace.events()}
+    assert ev["sleep"]["cpu"] < 0.1 * ev["sleep"]["dur"]
+    assert 20_000_000 <= ev["busy"]["cpu"] <= ev["busy"]["dur"]
+    assert ev["busy"]["cpu"] > 0.25 * ev["busy"]["dur"]
+
+
+def test_device_intervals_export_as_async_pairs(tracer):
+    t0 = time.perf_counter_ns()
+    trace.interval("lane/batch", "lane0 cuda:0", t0, t0 + 5000, B=4)
+    trace.interval("lane/kernel", "lane0 cuda:0", t0 + 1000, t0 + 2000)
+    doc = trace.chrome_trace()
+    assert trace.validate_chrome_trace(doc) == []
+    got = [(e["name"], e["ph"], e["ts"], e["cat"]) for e in doc["traceEvents"]
+           if e.get("id") == "lane0 cuda:0"]
+    us = t0 / 1000.0
+    assert got == [("lane/batch", "b", us, "device"),
+                   ("lane/batch", "e", us + 5, "device"),
+                   ("lane/kernel", "b", us + 1, "device"),
+                   ("lane/kernel", "e", us + 2, "device")]
+    # not complete events: nothing summing a thread's spans counts them
+    assert trace.span_records() == []
 
 
 def test_thread_local_nesting(tracer):
@@ -210,9 +242,13 @@ def test_disabled_tracer_overhead_budget():
     trace.reset()
     engine_torch.count(g, 4, **kw)
     n_spans = len(trace.events())
+    names = TallyCounter(ev["name"] for ev in trace.events())
     trace.configure(enabled=False)
     trace.reset()
     assert n_spans > 0
+    # the budget counts device/stage's children, one of each a batch
+    assert names["stage/place"] == names["stage/copy"] == \
+        names["count/step"] == names["device/stage"] > 0
 
     def span_round(n_iter):
         t0 = time.perf_counter()
@@ -252,6 +288,63 @@ def test_engine_trace_covers_device_stages(tracer):
     assert rows and any(r["flops"] > 0 for r in rows)
     assert all(r["sig"].startswith("count[l=2,T=") and
                r["sig"].endswith(",backend=torch:cpu]") for r in rows)
+
+
+@pytest.mark.parametrize("mode", ["count", "list"])
+def test_device_stage_children_nest_on_cpu_lanes(tracer, mode):
+    g = small_graph(43)
+    kw = dict(devices=["cpu"], batch_size=4, pack_workers=0)
+    if mode == "count":
+        stats = ebbkc.count(g, 4, engine_kwargs=kw).stats
+        step = "count/step"
+    else:
+        rows, stats = ebbkc.list_cliques(g, 4, engine_kwargs=kw)
+        step = "list/step"
+        assert stats.decode_backlog_s >= 0.0
+    recs = TallyCounter(trace.span_records())
+    n = recs[("device/stage", None)]
+    assert n > 1
+    for child in ("stage/place", "stage/copy", step):
+        assert recs[(child, "device/stage")] == n, child
+    assert recs[("list/collect", None)] == (mode == "list")
+    # no CUDA lane: no timing events, nothing on a lane track
+    assert stats.kernel_device_s == 0.0 and stats.staging_overlap_s == 0.0
+    assert not [e for e in trace.events() if e["ph"] in ("b", "e")]
+
+
+def test_lane_counters_merge_and_publish(registry):
+    a = Stats(kernel_device_s=0.5, decode_backlog_s=0.25)
+    assert a.merge(Stats(kernel_device_s=0.25, decode_backlog_s=0.5)) is a
+    assert (a.kernel_device_s, a.decode_backlog_s) == (0.75, 0.75)
+    obs_metrics.observe_stats(a, "repro_engine", registry)
+    got = {m.name: m.value for m in registry.collect()}
+    assert got["repro_engine_kernel_device_s_total"] == 0.75
+    assert got["repro_engine_decode_backlog_s_total"] == 0.75
+
+
+#: the benchmark's readers of this layer's spans and counters
+_READERS = ["stage_offcpu_s.count", "stage_copy_s.count",
+            "step_enqueue_s.count", "kernel_device_ms.count",
+            "decode_offcpu_s.list", "decode_backlog_s.list",
+            "collect_s.list"]
+
+
+@pytest.mark.parametrize("metric", _READERS)
+def test_span_and_counter_readers(metric):
+    from bench import harness
+    read = harness.load_reader(metric)
+    assert read(harness.Context({}, 0.0, 0.0, 0.0, [])) is None
+    names = ("device/stage", "stage/copy", "count/step", "decode",
+             "list/collect")
+    spans = [dict(name=n, ts=0, dur=3_000_000_000, cpu=1_000_000_000, tid=1)
+             for n in names]
+    q = harness.Query(1.0, Stats(kernel_device_s=0.002, decode_backlog_s=0.5))
+    assert read(harness.Context({}, 1.0, 0.0, 2.0, [q, q], spans)) > 0
+    # what a program without the fields records reads as nothing
+    bare = [{k: v for k, v in ev.items() if k != "cpu"} for ev in spans
+            if ev["name"] in ("device/stage", "decode")]
+    old = harness.Query(1.0, object())
+    assert read(harness.Context({}, 1.0, 0.0, 2.0, [old], bare)) is None
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +542,11 @@ def _span_names(tracer_mod, query):
 #: reference jit-compiles its device step on the CPU too, where the port
 #: builds its kernel library only for a CUDA lane (kernel/compile)
 _REFERENCE_ONLY = {"kernel/compile"}
+#: spans of the port that the reference does not have: the children of
+#: the dispatchers' ``device/stage`` and their launches, and the front
+#: door's collection of a listing's rows
+_PORT_ONLY = {"stage/copy", "stage/place", "count/step", "list/step",
+              "list/collect"}
 
 
 @pytest.mark.parametrize("mode", ["count", "list", "list-inline"])
@@ -472,7 +570,7 @@ def test_traced_query_spans_match_reference(mode):
             g, k, listing.ArraySink(k), device="cpu", **dev, **kw)
         ref_q = lambda: jlisting.stream_cliques(  # noqa: E731
             jg, k, jlisting.ArraySink(k), backend="lax", **jdev, **kw)
-    got = _span_names(trace, port_q)
+    got = _span_names(trace, port_q) - _PORT_ONLY
     want = _span_names(jtrace, ref_q) - _REFERENCE_ONLY
     assert "plan/build" in got and "extract" in got
     assert got == want
